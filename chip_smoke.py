@@ -1,0 +1,580 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/CUDA port (gaiaseg_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # every phase, as a check of the port
+    python3 chip_smoke.py build kernels   # only the named phases
+
+Phases, each printing its own lines; any failure exits non-zero:
+
+1. device   the card (nvidia-smi name and power limit), torch/CUDA versions,
+            the TF32 settings.
+2. build    nvcc builds every kernel of ``gaiaseg_tpu_torch/csrc``.
+3. kernels  K1 (``resize_ce_fwd``) and K2 (``resize_ce_bwd``) against their
+            plain torch versions at the flagship loss shapes and the test
+            shapes, float32 and bf16 logits, all-ignored labels; then their
+            times (CUDA events, L2 flushed, medians) beside the plain
+            version, the library call and the bound.
+4. segmentor  the flagship segmentor's loss and gradients through the
+            kernels equal the unfused F.interpolate + CE chain (float32).
+5. train    8 full-width iterations of the flagship supernet config
+            (``configs/local_examples/train_supernet/pspnet_ar50to101v2_
+            gsync.py``), one sandwich cycle, bf16 autocast, synthetic
+            512x1024 data, batch 8; K1 and K2 must each launch twice per
+            iteration (decode and aux loss). Then the identical cycle again
+            for warm step times, and one profiled MAX step (device time by
+            kernel, idle share).
+6. eval     whole-mode ``simple_test`` at the val anchors R50/R77/R101 on
+            two synthetic 1024x2048 images, confusion-matrix mIoU.
+
+It then prints the ``kernels`` JSON line, the nvidia-smi line and, last,
+``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``. There is no fallback: without a CUDA card,
+or without the rest of the repository beside this file, it exits non-zero
+and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FLAGSHIP = os.path.join(REPO, "configs", "local_examples", "train_supernet",
+                        "pspnet_ar50to101v2_gsync.py")
+OUT_DIR = os.path.join(REPO, "chiprun_out")
+PHASES = ("device", "build", "kernels", "segmentor", "train", "eval")
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# operations per (valid pixel, class) counted for the bound: K1 blends two
+# taps (3), max (1), subtract + exp + add (3); K2 also p*scale, -onehot and
+# the 2-row adjoint (2 FMA = 4 ops) -> 7 + 7. Per valid pixel: log, pick,
+# two adds (4).
+OPS_FWD_PER_CLASS, OPS_BWD_PER_CLASS, OPS_PER_PIXEL = 7, 14, 4
+
+F32_LOSS_RTOL = 1e-5    # loss: float32 sums of the same terms
+F32_GRAD_RTOL = 1e-4    # grad: max|d| <= 1e-4 * max|ref| (exp/sum order)
+BF16_GRAD_RTOL = 1e-2   # grad returned in bf16: one bf16 ulp is 2^-8
+SEG_GRAD_RTOL = 1e-3    # per-parameter grads after backprop through the
+                        # whole float32 network (cuDNN sums in its order)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------- #
+def phase_device(ctx):
+    import torch
+    from gaiaseg_tpu_torch.engine import configure_numerics
+    ctx["nvidia_smi"] = nvidia_smi_line()
+    ctx["tf32"] = configure_numerics()
+    print(f"[device] {ctx['nvidia_smi']} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
+    print(f"[device] tf32 {ctx['tf32']}")
+
+
+def phase_build(ctx):
+    from gaiaseg_tpu_torch.ops.cuda import build
+    t0 = time.perf_counter()
+    res = build.build()
+    secs = time.perf_counter() - t0
+    ctx["build_seconds"] = secs
+    for name, r in res.items():
+        print(f"[build] {name}: {r['path']} ({r['seconds']:.1f}s)")
+        for line in r["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
+    print(f"[build] all kernels built in {secs:.1f}s")
+
+
+# --------------------------------------------------------------------- #
+def _inputs(shape, dtype, seed, ignore_frac=0.1):
+    import torch
+    n, c, h, w, H, W = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    logits = torch.randn(n, c, h, w, generator=g, device="cuda").to(dtype)
+    label = torch.randint(0, c, (n, H, W), generator=g, device="cuda",
+                          dtype=torch.int32)
+    drop = torch.rand(n, H, W, generator=g, device="cuda") < ignore_frac
+    label[drop] = 255
+    return logits, label
+
+
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _check_case(name, shape, dtype, seed, errs):
+    """K1, K2 and the autograd path against the plain versions."""
+    import torch
+    from gaiaseg_tpu_torch.ops.cuda import resize_ce as rc
+    n, c, h, w, H, W = shape
+    logits, label = _inputs(shape, dtype, seed)
+    mid = rc.width_interp(logits, W)
+    ls, ws = rc.resize_ce_sums(mid, label, H)
+    rls, rws = rc.resize_ce_sums_reference(mid, label, H)
+    loss, rloss = ls / ws.clamp_min(1), rls / rws.clamp_min(1)
+    check(float(ws) == float(rws), f"{name}: valid count {ws} != {rws}")
+    rel = abs(float(loss) - float(rloss)) / max(abs(float(rloss)), 1e-30)
+    check(rel <= F32_LOSS_RTOL, f"{name}: K1 loss rel err {rel:.2e}")
+    scale = (1.0 / rws.clamp_min(1)).reshape(1)
+    gmid = rc.resize_ce_grad_mid(mid, label, scale, H)
+    rg = rc.resize_ce_grad_mid_reference(mid, label, scale, H)
+    gerr, gmax = _max_abs(gmid, rg), float(rg.abs().max())
+    check(gerr <= F32_GRAD_RTOL * gmax,
+          f"{name}: K2 grad max|d| {gerr:.2e} vs max|ref| {gmax:.2e}")
+    errs["resize_ce_fwd"] = max(errs["resize_ce_fwd"],
+                                abs(float(loss) - float(rloss)))
+    errs["resize_ce_bwd"] = max(errs["resize_ce_bwd"], gerr)
+    # end to end through the autograd Function
+    x = logits.detach().requires_grad_()
+    lk = rc.fused_resize_ce(x, label, (H, W))
+    gk, = torch.autograd.grad(lk, x)
+    xr = logits.detach().requires_grad_()
+    lr = rc.fused_resize_ce_reference(xr, label, (H, W))
+    gr, = torch.autograd.grad(lr, xr)
+    lk, lr = lk.detach(), lr.detach()
+    e2e = abs(float(lk) - float(lr)) / max(abs(float(lr)), 1e-30)
+    grad_rtol = F32_GRAD_RTOL if dtype == torch.float32 else BF16_GRAD_RTOL
+    g2 = _max_abs(gk, gr)
+    check(e2e <= F32_LOSS_RTOL and gk.dtype == dtype
+          and g2 <= grad_rtol * float(gr.float().abs().max()),
+          f"{name}: fused_resize_ce loss rel {e2e:.2e}, grad max|d| {g2:.2e}")
+    print(f"[kernels] {name:<22} {str(dtype)[6:]:<8} loss {float(loss):.6f} "
+          f"rel {rel:.1e} | K2 max|d| {gerr:.1e} (max|ref| {gmax:.1e}) | "
+          f"autograd loss rel {e2e:.1e} grad max|d| {g2:.1e}")
+
+
+def _time_ms(fn, flush, iters=20, warmup=3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush.zero_()   # evict the 50 MB L2: the step finds labels cold
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _bound(mid, label, fwd: bool) -> dict:
+    """Least time on the card: each input read once, each output written
+    once, over HBM rate; the operations the valid pixels need over the
+    float32 rate. The larger one bounds."""
+    n, h, c, W = mid.shape
+    n_valid = int((label != 255).sum())
+    per_class = OPS_FWD_PER_CLASS if fwd else OPS_BWD_PER_CLASS
+    ops = n_valid * (per_class * c + OPS_PER_PIXEL)
+    nbytes = mid.numel() * 4 + label.numel() * 4 + (8 if fwd else
+                                                     mid.numel() * 4)
+    return {"bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+            "ops_ms": 1e3 * ops / PEAK_F32_FLOPS}
+
+
+def _time_case(name, shape, timings):
+    import torch
+    import torch.nn.functional as F
+    from gaiaseg_tpu_torch.ops.cuda import resize_ce as rc
+    n, c, h, w, H, W = shape
+    logits, label = _inputs(shape, torch.float32, seed=7)
+    mid = rc.width_interp(logits, W)
+    rls, rws = rc.resize_ce_sums_reference(mid, label, H)
+    scale = (1.0 / rws.clamp_min(1)).reshape(1)
+    label64 = label.long()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    x = logits.detach().requires_grad_()
+    lib_loss = F.cross_entropy(
+        F.interpolate(x, (H, W), mode="bilinear", align_corners=False),
+        label64, ignore_index=255)
+
+    def lib_bwd():
+        x.grad = None
+        lib_loss.backward(retain_graph=True)
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.cross_entropy(F.interpolate(logits, (H, W), mode="bilinear",
+                                          align_corners=False),
+                            label64, ignore_index=255)
+
+    row = {
+        "resize_ce_fwd": dict(
+            ms=_time_ms(lambda: rc.resize_ce_sums(mid, label, H), flush),
+            plain_ms=_time_ms(
+                lambda: rc.resize_ce_sums_reference(mid, label, H), flush),
+            library_ms=_time_ms(lib_fwd, flush),
+            **_bound(mid, label, True)),
+        "resize_ce_bwd": dict(
+            ms=_time_ms(lambda: rc.resize_ce_grad_mid(mid, label, scale, H),
+                        flush),
+            plain_ms=_time_ms(lambda: rc.resize_ce_grad_mid_reference(
+                mid, label, scale, H), flush),
+            library_ms=_time_ms(lib_bwd, flush),
+            **_bound(mid, label, False)),
+    }
+    for k, v in row.items():
+        v["bound_ms"] = max(v["bytes_ms"], v["ops_ms"])
+        print(f"[kernels] time {name:<7} {k}: kernel {v['ms']:.4f} ms | "
+              f"plain {v['plain_ms']:.4f} ms | library {v['library_ms']:.4f}"
+              f" ms | bound: bytes {v['bytes_ms']:.4f} ms, operations "
+              f"{v['ops_ms']:.4f} ms")
+    timings[name] = row
+
+
+def phase_kernels(ctx):
+    import torch
+    from gaiaseg_tpu_torch.ops.cuda import resize_ce as rc
+    # [N, C, h, w] logits -> [N, H, W] labels; flagship crop 512x1024, C=19
+    flagship = {"decode": (8, 19, 16, 32, 512, 1024),
+                "aux": (8, 19, 32, 64, 512, 1024)}
+    test_shapes = {"test0": (2, 19, 8, 8, 32, 32),
+                   "test1": (1, 7, 4, 6, 16, 20),
+                   "test2": (2, 5, 3, 3, 12, 9)}
+    errs = {"resize_ce_fwd": 0.0, "resize_ce_bwd": 0.0}
+    for name, shape in flagship.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_case(name, shape, dtype, seed=1, errs=errs)
+    for name, shape in test_shapes.items():
+        _check_case(name, shape, torch.float32, seed=2, errs=errs)
+    # all ignored: exactly zero loss and zero gradient
+    logits, label = _inputs(flagship["aux"], torch.float32, 3)
+    label.fill_(255)
+    x = logits.detach().requires_grad_()
+    loss = rc.fused_resize_ce(x, label, (512, 1024))
+    g, = torch.autograd.grad(loss, x)
+    loss = float(loss.detach())
+    check(loss == 0.0 and float(g.abs().max()) == 0.0,
+          f"all-ignored: loss {loss}, max|grad| {float(g.abs().max())}")
+    print("[kernels] all-ignored labels: loss 0, grad 0")
+    torch.cuda.synchronize()
+    ctx["max_abs_err"] = errs
+    timings = {}
+    for name, shape in flagship.items():
+        _time_case(name, shape, timings)
+    ctx["kernel_timings"] = timings
+
+
+# --------------------------------------------------------------------- #
+def _flagship_cfg():
+    from gaiaseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.merge_from_dict({
+        "data.train": {"type": "SyntheticDataset", "size": [512, 1024],
+                       "length": 16, "num_classes": 19, "seed": 0,
+                       "cells": 8},
+        "data.samples_per_gpu": 8,
+        "cudnn_benchmark": False,
+    })
+    return cfg
+
+
+def _build_model(cfg):
+    import torch
+    from gaiaseg_tpu_torch.models import build_segmentor
+    torch.manual_seed(0)
+    return build_segmentor(cfg["model"]).cuda()
+
+
+def phase_segmentor(ctx):
+    """Loss + grads through the kernels == the unfused chain (float32)."""
+    import torch
+    from gaiaseg_tpu_torch.engine import prepare_batch
+    from gaiaseg_tpu_torch.data import SyntheticDataset
+    from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
+    cfg = _flagship_cfg()
+    model = _build_model(cfg).eval()   # running stats, no dropout
+    ds = SyntheticDataset(length=2, size=(128, 256), num_classes=19, seed=5,
+                          cells=8)
+    img, gt = prepare_batch([ds[0], ds[1]], cfg["img_norm_cfg"], "cuda")
+    gt[:, :8] = 255
+    arch = encode_arch(model_max_arch(cfg["model"]),
+                       cfg["train_sampler"]["model_samplers"][0]
+                       ["anchors"][4])   # R50
+    res = {}
+    for fused in (None, False):
+        model.fused_loss = fused
+        model.zero_grad(set_to_none=True)
+        total, _ = model.forward_train(img, gt, arch)
+        total.backward()
+        res[fused] = (float(total.detach()), {k: p.grad.clone() for k, p in
+                                     model.named_parameters()
+                                     if p.grad is not None})
+    (lk, gk), (lp, gp) = res[None], res[False]
+    rel = abs(lk - lp) / abs(lp)
+    worst = max(float((gk[k] - gp[k]).abs().max())
+                / max(float(gp[k].abs().max()), 1e-30) for k in gp)
+    check(rel <= F32_LOSS_RTOL and set(gk) == set(gp)
+          and worst <= SEG_GRAD_RTOL,
+          f"segmentor: loss rel {rel:.2e}, worst grad rel {worst:.2e}")
+    print(f"[segmentor] R50 128x256 float32: fused loss {lk:.6f} vs unfused "
+          f"{lp:.6f} (rel {rel:.1e}); worst per-tensor grad max|d|/max|ref| "
+          f"{worst:.1e} over {len(gp)} tensors")
+
+
+def phase_train(ctx):
+    import torch
+    from gaiaseg_tpu_torch.engine import train_segmentor
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    cfg = _flagship_cfg()
+    torch.backends.cudnn.benchmark = bool(cfg.get("cudnn_benchmark"))
+    model = _build_model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[train] flagship supernet: {n_params / 1e6:.2f} M parameters, "
+          "stem 64, widths 80/160/320/640, depths 4/6/29/4, PSP + FCN aux")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    history = train_segmentor(model, cfg, device="cuda", max_iters=8,
+                              seed=0, log=lambda s: print(f"[train] {s}"))
+    launches = dict(LAUNCHES)
+    ctx["launches"] = launches
+    ctx["model"] = model
+    ctx["cfg"] = cfg
+    names = [r["arch"] for r in history]
+    check(names == ["MAX", "MIN", "R101", "R77", "R50"] + ["random"] * 3,
+          f"train: arch sequence {names}")
+    check(all(math.isfinite(r["loss"]) for r in history),
+          f"train: non-finite loss in {[r['loss'] for r in history]}")
+    for k in ("resize_ce_fwd", "resize_ce_bwd"):
+        check(launches[k] == 2 * len(history),
+              f"train: {k} launched {launches[k]} times in {len(history)} "
+              "iterations (want 2 per iteration)")
+    # the identical cycle again (same seed: same archs, same batches) with
+    # cuDNN's per-shape set-up done: the warm step times
+    warm = train_segmentor(model, cfg, device="cuda", max_iters=8, seed=0)
+    ctx["train_warm"] = warm
+
+    def img_per_s(hist, key):
+        return 8 * len(hist) / (sum(r[key] for r in hist) / 1e3)
+
+    ctx["train"] = {
+        "history": history, "warm_history": warm,
+        "cold_img_per_s": img_per_s(history, "step_ms"),
+        "warm_img_per_s": img_per_s(warm, "step_ms"),
+        "warm_wall_img_per_s": 8 * len(warm) / (sum(
+            r["step_ms"] + r["data_ms"] for r in warm) / 1e3),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    _profile_max_step(model, cfg, ctx)
+    t = ctx["train"]
+    print(f"[train] launches {launches} over {len(history)} iterations")
+    print("[train] warm cycle step ms: " + ", ".join(
+        f"{r['arch']} {r['step_ms']:.1f}" for r in warm))
+    cold, hot = t["cold_img_per_s"], t["warm_img_per_s"]
+    print(f"[train] device step img/s over the cycle: first {cold:.2f}, "
+          f"warm {hot:.2f}; warm with host data "
+          f"{t['warm_wall_img_per_s']:.2f}; on {ctx['nvidia_smi']}; peak "
+          f"memory {t['peak_mem_gb']:.2f} GB")
+
+
+def _profile_max_step(model, cfg, ctx):
+    """Where one warm MAX-arch train step spends the card's time: device
+    time by kernel from torch.profiler, and the idle share of the step's
+    wall time (profiler on, so the wall time carries its overhead)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gaiaseg_tpu_torch.data import build_dataset
+    from gaiaseg_tpu_torch.engine import prepare_batch, train_step
+    from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
+    ds = build_dataset(cfg["data"]["train"])
+    img, gt = prepare_batch([ds[i] for i in range(8)], cfg["img_norm_cfg"],
+                            "cuda")
+    arch = encode_arch(model_max_arch(cfg["model"]))
+    opt = torch.optim.SGD(model.parameters(), lr=0.0, momentum=0.9)
+    train_step(model, opt, img, gt, arch)          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(model, opt, img, gt, arch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # device activity only (kernels, copies, sets): the CPU ops that
+    # launched them carry the same time again
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        t_start, t_end = e.time_range.start, e.time_range.end
+        spans.append((t_start, t_end))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (t_end - t_start) / 1e3, n + 1)
+    busy, last = 0.0, None
+    for a, b in sorted(spans):       # union of the device intervals
+        if last is None or a > last:
+            busy += (b - a) / 1e3
+            last = b
+        elif b > last:
+            busy += (b - last) / 1e3
+            last = b
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                  reverse=True)
+    warm_ms = next(r["step_ms"] for r in ctx["train_warm"]
+                   if r["arch"] == "MAX")
+    ctx["profile"] = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+                      "unprofiled_step_ms": warm_ms, "top": rows[:15]}
+    if busy == 0:
+        print("[train] profiler: no device time seen")
+        return
+    print(f"[train] profile MAX step: device busy {busy:.1f} ms; step "
+          f"{warm_ms:.1f} ms unprofiled (idle share {1 - busy / warm_ms:.3f})"
+          f", {wall_ms:.1f} ms profiled")
+    for ms, count, name in rows[:12]:
+        print(f"[train]   {ms:8.2f} ms  x{count:<4d} {name[:90]}")
+
+
+def phase_eval(ctx):
+    import torch
+    from gaiaseg_tpu_torch.archspace import build_model_sampler
+    from gaiaseg_tpu_torch.data import SyntheticDataset
+    from gaiaseg_tpu_torch.engine import evaluate_arch
+    from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    cfg = ctx.get("cfg") or _flagship_cfg()
+    model = (ctx.get("model") or _build_model(cfg)).eval()
+    ds = SyntheticDataset(length=2, size=(1024, 2048), num_classes=19,
+                          seed=1, cells=8)
+    max_arch = model_max_arch(cfg["model"])
+    reset_launches()
+    results = {}
+    for meta in build_model_sampler(cfg["val_sampler"]).traverse():
+        arch = encode_arch(max_arch, meta)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_arch(model, ds, arch, cfg["img_norm_cfg"], "cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(math.isfinite(res["mIoU"]) and 0.0 <= res["mIoU"] <= 1.0,
+              f"eval {meta['name']}: mIoU {res['mIoU']}")
+        results[meta["name"]] = {"mIoU": res["mIoU"], "aAcc": res["aAcc"],
+                                 "seconds": dt}
+        print(f"[eval] {meta['name']}: mIoU {res['mIoU']:.4f} aAcc "
+              f"{res['aAcc']:.4f} on 2 images 1024x2048 in {dt:.2f}s")
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        img = torch.zeros(1, 3, 1024, 2048, device="cuda")
+        pred = model.simple_test(img, encode_arch(max_arch, meta))
+    check(tuple(pred.shape) == (1, 1024, 2048), f"eval: shape {pred.shape}")
+    ctx["eval"] = results
+    ctx["eval_launches"] = dict(LAUNCHES)   # whole inference runs no kernel
+
+
+# --------------------------------------------------------------------- #
+REPLACES = {
+    "resize_ce_fwd": "gaiaseg_tpu/ops/pallas/resize_ce.py:109 (_fwd_kernel "
+                     "via _sums :175)",
+    "resize_ce_bwd": "gaiaseg_tpu/ops/pallas/resize_ce.py:128 (_bwd_kernel "
+                     "via _frc_bwd :237)",
+}
+
+
+def kernels_line(ctx):
+    """One entry per kernel; times are per train step: its decode-loss and
+    aux-loss launches added."""
+    out = []
+    timings = ctx.get("kernel_timings", {})
+    for k in ("resize_ce_fwd", "resize_ce_bwd"):
+        rows = [t[k] for t in timings.values()]
+
+        def total(field):
+            return sum(r[field] for r in rows) if rows else None
+        ops_ms, bytes_ms = total("ops_ms"), total("bytes_ms")
+        out.append({
+            "name": k, "route": "cuda",
+            "source": "gaiaseg_tpu_torch/csrc/resize_ce.cu",
+            "replaces": REPLACES[k],
+            "launches": ctx.get("launches", {}).get(k),
+            "max_abs_err": ctx.get("max_abs_err", {}).get(k),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms") if rows else None,
+            "bound_by": None if not rows else (
+                "operations" if ops_ms > bytes_ms else "bytes"),
+            "library_ms": total("library_ms"),
+        })
+    return {"kernels": out}
+
+
+def main(argv) -> int:
+    phases = argv or list(PHASES)
+    bad = [p for p in phases if p not in PHASES]
+    if bad:
+        print(f"unknown phases {bad}; choose from {PHASES}", file=sys.stderr)
+        return 2
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: no torch ({e})", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; the port's smoke runs "
+              "only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        import gaiaseg_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port package is missing beside this file "
+              f"({e})", file=sys.stderr)
+        return 1
+    if not os.path.isfile(FLAGSHIP):
+        print(f"chip_smoke: flagship config missing: {FLAGSHIP}",
+              file=sys.stderr)
+        return 1
+    ctx = {}
+    if "device" not in phases:
+        phases = ["device"] + phases
+    for p in phases:
+        t0 = time.perf_counter()
+        try:
+            globals()[f"phase_{p}"](ctx)
+        except SmokeFailure as e:
+            print(f"[{p}] FAIL: {e}")
+            return 1
+        torch.cuda.synchronize()
+        print(f"[{p}] ok in {time.perf_counter() - t0:.1f}s")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    line = kernels_line(ctx)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump({"nvidia_smi": ctx["nvidia_smi"], "tf32": ctx["tf32"],
+                   "build_seconds": ctx.get("build_seconds"),
+                   "kernel_timings": ctx.get("kernel_timings"),
+                   "launches": ctx.get("launches"),
+                   "train": ctx.get("train"), "profile": ctx.get("profile"),
+                   "eval": ctx.get("eval"),
+                   "kernels": line["kernels"]}, f, indent=2, default=str)
+    print(json.dumps(line))
+    print(ctx["nvidia_smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

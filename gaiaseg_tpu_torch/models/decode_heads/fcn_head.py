@@ -1,0 +1,40 @@
+"""FCN decode head (the auxiliary head of the flagship supernet config).
+
+Port of ``gaiaseg_tpu/models/decode_heads/fcn_head.py``: ``num_convs`` 3x3
+conv modules, dropout and the 1x1 classifier. The first conv takes the
+active input rows only. ``concat_input=True`` (the ``conv_cat`` branch)
+waits for a later slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...ops.blocks import DynConvModule
+from ...utils.registry import HEADS
+from .base import BaseDecodeHead
+
+
+@HEADS.register_module(name=["DynamicFCNHead", "FCNHead"])
+class DynamicFCNHead(BaseDecodeHead):
+    def __init__(self, in_channels: int, channels: int = 256,
+                 num_convs: int = 2, kernel_size: int = 3,
+                 concat_input: bool = True, dilation: int = 1, **kw):
+        super().__init__(in_channels, channels, **kw)
+        if concat_input:
+            raise NotImplementedError(
+                "DynamicFCNHead concat_input=True waits for a later slice "
+                "of the port")
+        self.convs = nn.ModuleList([
+            DynConvModule(self.in_channels if i == 0 else self.channels,
+                          self.channels, kernel_size, dilation=dilation)
+            for i in range(int(num_convs))])
+
+    def forward(self, inputs,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feat = self._transform_inputs(inputs)
+        for conv in self.convs:
+            feat = conv(feat)
+        return self.cls_seg(feat, generator)

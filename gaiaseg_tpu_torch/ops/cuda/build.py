@@ -1,0 +1,87 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
+``_build/lib<name>_<digest>.so`` (the digest covers the source and the
+flags, so an edited source rebuilds). Nothing is built when a module is
+imported: a kernel's wrapper calls ``load`` at its first launch, and
+``build()`` builds every source at once, one nvcc process each, all
+started together. The build directory is inside the package and listed in
+``.gitignore``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+KERNEL_SOURCES = ("resize_ce",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the port's CUDA kernels are built from source at first use")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+
+
+def build(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Dict]:
+    """Compile every missing library in ``names`` concurrently.
+
+    Returns ``{name: {"path", "seconds", "log"}}``; ``seconds`` is 0 and
+    ``log`` empty for a library that was already built. Raises
+    ``RuntimeError`` with nvcc's output when a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: Dict[str, Dict] = {}
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        path = library_path(name)
+        if path.is_file():
+            out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, path)  # atomic: concurrent builders never see halves
+        out[name] = {"path": str(path),
+                     "seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library ``name``, building it first if needed."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

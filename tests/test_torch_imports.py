@@ -1,0 +1,92 @@
+"""The port stands alone: no jax, no gaiaseg_tpu, and no quiet CPU fallback.
+
+- Importing every module of gaiaseg_tpu_torch (and chip_smoke.py) in a fresh
+  interpreter loads neither ``jax`` nor any ``gaiaseg_tpu`` module.
+- Entry points asked for ``cuda`` on a machine without a card raise.
+- chip_smoke.py exits non-zero, printing no result, without a card or
+  without the rest of the repository beside it.
+"""
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP = os.path.join(REPO, "configs", "local_examples", "train_supernet",
+                        "pspnet_ar50to101v2_gsync.py")
+
+torch.set_num_threads(1)
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {repo!r})
+import gaiaseg_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gaiaseg_tpu_torch.__path__,
+                                               "gaiaseg_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "gaiaseg_tpu"
+             or m.startswith("gaiaseg_tpu.") or m == "flax" or m == "optax")
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=REPO, env={**os.environ, "PYTHONPATH": ""})
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 25
+    assert bad.strip() == "[]", bad
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _entry_train_cli():
+    from gaiaseg_tpu_torch.tools import train_supernet
+    train_supernet.main([FLAGSHIP, "--max-iters", "1"])
+
+
+def _entry_train_segmentor():
+    from gaiaseg_tpu_torch.engine import train_segmentor
+    train_segmentor(torch.nn.Linear(1, 1), {"model": {}}, device="cuda")
+
+
+def _entry_evaluate():
+    from gaiaseg_tpu_torch.engine import evaluate_arch
+    evaluate_arch(None, [], {}, {}, "cuda")
+
+
+@pytest.mark.parametrize("entry", [_entry_train_cli, _entry_train_segmentor,
+                                   _entry_evaluate])
+def test_entry_points_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="cuda"):
+        entry()
+
+
+def _run_smoke(cwd, env_extra):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, **env_extra})
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _run_smoke(REPO, {"CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = _run_smoke(str(tmp_path), {"PYTHONPATH": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

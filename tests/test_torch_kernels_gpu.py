@@ -1,0 +1,91 @@
+"""The port's CUDA kernels against their plain torch versions, on a card.
+
+Marked ``gpu``; each test skips without CUDA (decided inside a fixture, never
+at import). This file imports torch and the port only, so it runs where JAX
+is not installed:
+
+    python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest
+"""
+import numpy as np
+import pytest
+import torch
+
+from gaiaseg_tpu_torch.ops.cuda import resize_ce as rc
+
+SHAPES = [
+    (2, 8, 8, 19, 32, 32),
+    (1, 4, 6, 7, 16, 20),
+    (2, 3, 3, 5, 12, 9),
+    (8, 16, 32, 19, 512, 1024),     # flagship decode loss
+    (8, 32, 64, 19, 512, 1024),     # flagship aux loss
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(shape, device, seed=0):
+    n, h, w, c, H, W = shape
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy(rng.randn(n, c, h, w).astype(np.float32))
+    lab = rng.randint(0, c, (n, H, W)).astype(np.int32)
+    lab[rng.rand(n, H, W) < 0.1] = 255
+    return logits.to(device), torch.from_numpy(lab).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernels_match_plain(cuda, shape):
+    """K1: loss within 1e-5 relative, equal valid count; K2: max|d| within
+    1e-4 of max|ref|; each wrapper counts one launch."""
+    logits, label = _inputs(shape, cuda)
+    H = shape[4]
+    mid = rc.width_interp(logits, shape[5])
+    before = dict(rc.LAUNCHES)
+    ls, ws = rc.resize_ce_sums(mid, label, H)
+    rls, rws = rc.resize_ce_sums_reference(mid, label, H)
+    assert float(ws) == float(rws)
+    assert abs(float(ls / ws) - float(rls / rws)) <= 1e-5 * float(rls / rws)
+    scale = (1.0 / rws).reshape(1)
+    g = rc.resize_ce_grad_mid(mid, label, scale, H)
+    rg = rc.resize_ce_grad_mid_reference(mid, label, scale, H)
+    assert float((g - rg).abs().max()) <= 1e-4 * float(rg.abs().max())
+    assert rc.LAUNCHES["resize_ce_fwd"] == before["resize_ce_fwd"] + 1
+    assert rc.LAUNCHES["resize_ce_bwd"] == before["resize_ce_bwd"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_matches_plain(cuda, dtype):
+    """fused_resize_ce on CUDA tensors (K1 forward, K2 backward) against the
+    plain version differentiated by autograd; bf16 grads within one bf16
+    ulp (2^-8) of the max."""
+    logits, label = _inputs(SHAPES[3], cuda, seed=1)
+    x = logits.to(dtype).requires_grad_()
+    loss = rc.fused_resize_ce(x, label, (512, 1024))
+    g, = torch.autograd.grad(loss, x)
+    xr = logits.to(dtype).requires_grad_()
+    ref = rc.fused_resize_ce_reference(xr, label, (512, 1024))
+    gr, = torch.autograd.grad(ref, xr)
+    assert g.dtype == dtype
+    assert abs(float(loss.detach()) - float(ref.detach())) <= \
+        1e-5 * float(ref.detach())
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert float((g.float() - gr.float()).abs().max()) <= \
+        tol * float(gr.float().abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_raise_on_bad_input(cuda):
+    mid = torch.zeros(2, 4, 5, 16, device=cuda)
+    with pytest.raises(ValueError):
+        rc.resize_ce_sums(mid, torch.zeros(2, 16, 16, dtype=torch.int64,
+                                           device=cuda), 16)
+    with pytest.raises(ValueError):
+        rc.resize_ce_grad_mid(mid, torch.zeros(2, 16, 16, dtype=torch.int32,
+                                               device=cuda),
+                              torch.ones(2, device=cuda), 16)
