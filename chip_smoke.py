@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, as a check of the port
     python3 chip_smoke.py build kernels   # only the named phases
+    python3 chip_smoke.py flash_kernels   # just K3-K5 (built on first use)
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -10,8 +11,9 @@ Phases, each printing its own lines; any failure exits non-zero:
             the TF32 settings.
 2. build    nvcc builds every kernel of ``gaiaseg_tpu_torch/csrc``.
 3. kernels  K1 (``resize_ce_fwd``) and K2 (``resize_ce_bwd``) against their
-            plain torch versions at the flagship loss shapes and the test
-            shapes, float32 and bf16 logits, all-ignored labels; then their
+            plain torch versions at the flagship and the ViT loss shapes
+            (float32 and bf16 logits), the test shapes, all-ignored labels;
+            then their
             times (CUDA events, L2 flushed, medians) beside the plain
             version, the library call and the bound.
 4. segmentor  the flagship segmentor's loss and gradients through the
@@ -25,6 +27,24 @@ Phases, each printing its own lines; any failure exits non-zero:
             kernel, idle share).
 6. eval     whole-mode ``simple_test`` at the val anchors R50/R77/R101 on
             two synthetic 1024x2048 images, confusion-matrix mIoU.
+7. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
+            (``flash_bwd_dq``) against their plain torch versions at the ViT
+            shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025 and
+            200 (ragged tails) and on all-zero q/k/v; then their times beside
+            the plain version, SDPA and the bound.
+8. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
+            the flash kernels equal the dense attention route (bf16); two
+            planted faults in dq (zeroed, halved) must fail that check.
+9. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
+            UPerNet supernet (``configs/_dynamic_/models/upernet_elastic_
+            vit.py`` with ``with_cls_token=False``, so the flash gate opens)
+            at full width, synthetic 512x512 data, batch 8, AdamW + clip;
+            K3-K5 must each launch once per active layer, K1/K2 twice per
+            iteration. Then the cycle again for warm times and a profiled
+            MAX step.
+10. vit_eval  whole-mode eval at the val anchors MIN and MAX on four
+            synthetic 512x512 images; K3 launches once per active layer per
+            forward.
 
 It then prints the ``kernels`` JSON line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Details go to
@@ -45,7 +65,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(REPO, "configs", "local_examples", "train_supernet",
                         "pspnet_ar50to101v2_gsync.py")
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-PHASES = ("device", "build", "kernels", "segmentor", "train", "eval")
+VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
+                   "upernet_elastic_vit.py")
+PHASES = ("device", "build", "kernels", "segmentor", "train", "eval",
+          "flash_kernels", "vit_segmentor", "vit_train", "vit_eval")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+VIT_ITERS = 4     # one sandwich cycle: MAX, MIN, 2 random
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -56,6 +81,29 @@ PEAK_F32_FLOPS = 67e12
 # two adds (4).
 OPS_FWD_PER_CLASS, OPS_BWD_PER_CLASS, OPS_PER_PIXEL = 7, 14, 4
 
+# dense bf16 tensor-core rate; operations per (q row, key, head-dim lane) of
+# each attention kernel: K3 S = QK^T and O = PV (2 products, 2 ops each);
+# K4 S^T, dP^T, dV, dK (4 products); K5 S, dP, dQ (3 products)
+PEAK_BF16_FLOPS = 989e12
+OPS_FLASH_FWD, OPS_FLASH_DKV, OPS_FLASH_DQ = 4, 8, 6
+VIT_ATTN_SHAPE = (8, 1024, 12)   # [B, N, H] of the ViT train step, D = 64
+
+# flash kernels against their plain versions, as a share of max|ref|:
+# float32 outputs differ only in summation order; bf16 outputs are rounded
+# to bf16 (half an ulp is 2^-9) and the kernels round P (forward) and P, dS
+# (backward) to bf16 as tensor-core operands where the plain backward keeps
+# them float32; m and l are float32 in both.
+FLASH_F32_RTOL = 1e-4
+FLASH_BF16_RTOL = 2e-2
+FLASH_STAT_RTOL = 1e-4
+# ViT segmentor, flash route vs dense route under bf16 autocast: the dense
+# route rounds the logits QK^T to bf16 before its float32 softmax (as the
+# JAX module does), the kernels keep them float32, so the routes differ by
+# bf16 roundings through 12 layers; measured next to the dense bf16 route's
+# own distance from float32 and to planted faults in dq, which must exceed
+# the gradient tolerance (all printed by the phase)
+VIT_LOSS_RTOL = 1e-2
+VIT_GRAD_RTOL = 1e-1
 F32_LOSS_RTOL = 1e-5    # loss: float32 sums of the same terms
 F32_GRAD_RTOL = 1e-4    # grad: max|d| <= 1e-4 * max|ref| (exp/sum order)
 BF16_GRAD_RTOL = 1e-2   # grad returned in bf16: one bf16 ulp is 2^-8
@@ -124,8 +172,9 @@ def _max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def _check_case(name, shape, dtype, seed, errs):
-    """K1, K2 and the autograd path against the plain versions."""
+def _check_case(name, shape, dtype, seed, errs, log):
+    """K1, K2 and the autograd path against the plain versions; the case's
+    readings are appended to ``log``."""
     import torch
     from gaiaseg_tpu_torch.ops.cuda import resize_ce as rc
     n, c, h, w, H, W = shape
@@ -160,6 +209,9 @@ def _check_case(name, shape, dtype, seed, errs):
     check(e2e <= F32_LOSS_RTOL and gk.dtype == dtype
           and g2 <= grad_rtol * float(gr.float().abs().max()),
           f"{name}: fused_resize_ce loss rel {e2e:.2e}, grad max|d| {g2:.2e}")
+    log.append({"case": name, "shape": list(shape), "dtype": str(dtype)[6:],
+                "k1_loss_rel": rel, "k2_max_abs": gerr, "k2_max_ref": gmax,
+                "autograd_loss_rel": e2e, "autograd_grad_max_abs": g2})
     print(f"[kernels] {name:<22} {str(dtype)[6:]:<8} loss {float(loss):.6f} "
           f"rel {rel:.1e} | K2 max|d| {gerr:.1e} (max|ref| {gmax:.1e}) | "
           f"autograd loss rel {e2e:.1e} grad max|d| {g2:.1e}")
@@ -254,15 +306,20 @@ def phase_kernels(ctx):
     # [N, C, h, w] logits -> [N, H, W] labels; flagship crop 512x1024, C=19
     flagship = {"decode": (8, 19, 16, 32, 512, 1024),
                 "aux": (8, 19, 32, 64, 512, 1024)}
+    # the ViT path's losses: UPer logits at 128x128 (row factor 4) and FCN
+    # aux logits at 32x32 (row factor 16), crop 512x512
+    vit = {"vit_decode": (8, 19, 128, 128, 512, 512),
+           "vit_aux": (8, 19, 32, 32, 512, 512)}
     test_shapes = {"test0": (2, 19, 8, 8, 32, 32),
                    "test1": (1, 7, 4, 6, 16, 20),
                    "test2": (2, 5, 3, 3, 12, 9)}
     errs = {"resize_ce_fwd": 0.0, "resize_ce_bwd": 0.0}
-    for name, shape in flagship.items():
+    log = ctx["kernel_checks"] = []
+    for name, shape in {**flagship, **vit}.items():
         for dtype in (torch.float32, torch.bfloat16):
-            _check_case(name, shape, dtype, seed=1, errs=errs)
+            _check_case(name, shape, dtype, seed=1, errs=errs, log=log)
     for name, shape in test_shapes.items():
-        _check_case(name, shape, torch.float32, seed=2, errs=errs)
+        _check_case(name, shape, torch.float32, seed=2, errs=errs, log=log)
     # all ignored: exactly zero loss and zero gradient
     logits, label = _inputs(flagship["aux"], torch.float32, 3)
     label.fill_(255)
@@ -279,6 +336,145 @@ def phase_kernels(ctx):
     for name, shape in flagship.items():
         _time_case(name, shape, timings)
     ctx["kernel_timings"] = timings
+
+
+# --------------------------------------------------------------------- #
+def _attn_inputs(b, n, h, dtype, seed, zeros=False):
+    """q (pre-scaled, contiguous), k and v as views into one [B, N, 2, H,
+    64] tensor (the layout the fused qkv projection gives), dO."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q = torch.randn(b, n, h, 64, generator=g, device="cuda") * 0.125
+    kv = torch.randn(b, n, 2, h, 64, generator=g, device="cuda")
+    do = torch.randn(b, n, h, 64, generator=g, device="cuda")
+    if zeros:
+        q, kv = q.zero_(), kv.zero_()
+    kv = kv.to(dtype)
+    return q.to(dtype), kv[:, :, 0], kv[:, :, 1], do.to(dtype)
+
+
+def _check_flash(name, shape, dtype, seed, errs, log, zeros=False):
+    """K3, K4 and K5 against their plain versions on the same inputs; every
+    output within its tolerance of max|ref|. Each output's max|d| and
+    max|ref| are appended to ``log``."""
+    import torch
+    from gaiaseg_tpu_torch.ops.cuda import flash_attention as fa
+    q, k, v, do = _attn_inputs(*shape, dtype, seed, zeros)
+    o, m, l = fa.flash_fwd(q, k, v)
+    ro, rm, rl = fa.flash_fwd_reference(q, k, v)
+    di = fa.attention_di(ro, do)           # both backward paths get ref's
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, rm, rl, di)
+    dq = fa.flash_bwd_dq(q, k, v, do, rm, rl, di)
+    rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, rm, rl, di)
+    rdq = fa.flash_bwd_dq_reference(q, k, v, do, rm, rl, di)
+    bf16 = dtype == torch.bfloat16
+    out_tol = FLASH_BF16_RTOL if bf16 else FLASH_F32_RTOL
+    line = []
+    for key, got, ref, tol, kernel in (
+            ("o", o, ro, out_tol, "flash_fwd"),
+            ("m", m, rm, FLASH_STAT_RTOL, "flash_fwd"),
+            ("l", l, rl, FLASH_STAT_RTOL, "flash_fwd"),
+            ("dq", dq, rdq, out_tol, "flash_bwd_dq"),
+            ("dk", dk, rdk, out_tol, "flash_bwd_dkv"),
+            ("dv", dv, rdv, out_tol, "flash_bwd_dkv")):
+        err, scale = _max_abs(got, ref), float(ref.float().abs().max())
+        check(got.shape == ref.shape and err <= tol * max(scale, 1e-30)
+              or (scale == 0 and err == 0),
+              f"{name} {str(dtype)[6:]}: {key} max|d| {err:.3e} vs max|ref| "
+              f"{scale:.3e} (tolerance {tol} of max|ref|)")
+        if key in ("o", "dq", "dk", "dv"):
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+        log.append({"case": name, "shape": list(shape),
+                    "dtype": str(dtype)[6:], "output": key, "max_abs": err,
+                    "max_ref": scale})
+        line.append(f"{key} {err:.1e}/{scale:.1e}")
+    print(f"[flash_kernels] {name:<14} {str(dtype)[6:]:<8} max|d|/max|ref| "
+          + " ".join(line))
+
+
+def _flash_bounds(b, n, h):
+    """Least time of each kernel at [B, N, H, 64] bf16: operations over the
+    bf16 tensor-core rate, bytes (each input read once, each output
+    written once) over HBM rate."""
+    pairs = b * h * n * n * 64
+    tensor = b * n * h * 64 * 2                 # one bf16 [B, N, H, 64]
+    stat = b * h * n * 4                        # one float32 [B, H, N]
+    rows = {"flash_fwd": (OPS_FLASH_FWD * pairs, 4 * tensor + 2 * stat),
+            "flash_bwd_dkv": (OPS_FLASH_DKV * pairs, 6 * tensor + 3 * stat),
+            "flash_bwd_dq": (OPS_FLASH_DQ * pairs, 5 * tensor + 3 * stat)}
+    return {k: {"ops_ms": 1e3 * ops / PEAK_BF16_FLOPS,
+                "bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S}
+            for k, (ops, nbytes) in rows.items()}
+
+
+def phase_flash_kernels(ctx):
+    import torch
+    import torch.nn.functional as F
+    from gaiaseg_tpu_torch.ops.cuda import flash_attention as fa
+    errs = {}
+    log = ctx["flash_checks"] = []
+    full = VIT_ATTN_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        _check_flash("vit", full, dtype, 1, errs, log)
+        _check_flash("cls-token", (2, 1025, 12), dtype, 2, errs, log)
+        _check_flash("n200", (1, 200, 2), dtype, 3, errs, log)
+    _check_flash("zeros", (2, 1024, 12), torch.bfloat16, 4, errs, log,
+                 zeros=True)
+    q, k, v, _ = _attn_inputs(2, 1024, 12, torch.bfloat16, 4, zeros=True)
+    check(float(fa.flash_fwd(q, k, v)[0].abs().max()) == 0.0,
+          "zeros: flash_fwd output is not zero")
+    torch.cuda.synchronize()
+    ctx["flash_max_abs_err"] = errs
+
+    # times at the ViT shape, bf16: kernel, plain version, SDPA
+    q, k, v, do = _attn_inputs(*full, torch.bfloat16, 5)
+    o, m, l = fa.flash_fwd(q, k, v)
+    di = fa.attention_di(o, do)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+    dot = do.transpose(1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+
+    lib_bwd_ms = _time_ms(lib_bwd, flush)
+    bounds = _flash_bounds(*full)
+    rows = {
+        "flash_fwd": dict(
+            ms=_time_ms(lambda: fa.flash_fwd(q, k, v), flush),
+            plain_ms=_time_ms(lambda: fa.flash_fwd_reference(q, k, v), flush),
+            library_ms=_time_ms(lib_fwd, flush)),
+        "flash_bwd_dkv": dict(
+            ms=_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, m, l, di),
+                        flush),
+            plain_ms=_time_ms(lambda: fa.flash_bwd_dkv_reference(
+                q, k, v, do, m, l, di), flush),
+            library_ms=lib_bwd_ms),
+        "flash_bwd_dq": dict(
+            ms=_time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, m, l, di),
+                        flush),
+            plain_ms=_time_ms(lambda: fa.flash_bwd_dq_reference(
+                q, k, v, do, m, l, di), flush),
+            library_ms=lib_bwd_ms),
+    }
+    for name, r in rows.items():
+        r.update(bounds[name])
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        print(f"[flash_kernels] time {name}: kernel {r['ms']:.4f} ms | plain "
+              f"{r['plain_ms']:.4f} ms | SDPA {r['library_ms']:.4f} ms | "
+              f"bound: operations {r['ops_ms']:.4f} ms, bytes "
+              f"{r['bytes_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} "
+              "reached)")
+    print("[flash_kernels] SDPA backward computes dq, dk and dv in one call: "
+          "compare it with flash_bwd_dkv + flash_bwd_dq")
+    ctx["flash_timings"] = rows
 
 
 # --------------------------------------------------------------------- #
@@ -380,7 +576,7 @@ def phase_train(ctx):
         "warm_wall_img_per_s": 8 * len(warm) / (sum(
             r["step_ms"] + r["data_ms"] for r in warm) / 1e3),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    _profile_max_step(model, cfg, ctx)
+    ctx["profile"] = _profile_max_step(model, cfg, warm, "train")
     t = ctx["train"]
     print(f"[train] launches {launches} over {len(history)} iterations")
     print("[train] warm cycle step ms: " + ", ".join(
@@ -392,27 +588,30 @@ def phase_train(ctx):
           f"memory {t['peak_mem_gb']:.2f} GB")
 
 
-def _profile_max_step(model, cfg, ctx):
+def _profile_max_step(model, cfg, warm, tag):
     """Where one warm MAX-arch train step spends the card's time: device
     time by kernel from torch.profiler, and the idle share of the step's
-    wall time (profiler on, so the wall time carries its overhead)."""
+    wall time (profiler on, so the wall time carries its overhead). The
+    step is the config's optimizer (at lr 0) and gradient clip."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from gaiaseg_tpu_torch.data import build_dataset
-    from gaiaseg_tpu_torch.engine import prepare_batch, train_step
+    from gaiaseg_tpu_torch.engine import (build_optimizer, grad_clip_norm,
+                                          prepare_batch, train_step)
     from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
     ds = build_dataset(cfg["data"]["train"])
     img, gt = prepare_batch([ds[i] for i in range(8)], cfg["img_norm_cfg"],
                             "cuda")
     arch = encode_arch(model_max_arch(cfg["model"]))
-    opt = torch.optim.SGD(model.parameters(), lr=0.0, momentum=0.9)
-    train_step(model, opt, img, gt, arch)          # warm
+    opt = build_optimizer(model.parameters(), dict(cfg["optimizer"], lr=0.0))
+    max_norm = grad_clip_norm(cfg.get("optimizer_config"))
+    train_step(model, opt, img, gt, arch, max_norm=max_norm)      # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        train_step(model, opt, img, gt, arch)
+        train_step(model, opt, img, gt, arch, max_norm=max_norm)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # device activity only (kernels, copies, sets): the CPU ops that
@@ -436,18 +635,18 @@ def _profile_max_step(model, cfg, ctx):
             last = b
     rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
                   reverse=True)
-    warm_ms = next(r["step_ms"] for r in ctx["train_warm"]
-                   if r["arch"] == "MAX")
-    ctx["profile"] = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
-                      "unprofiled_step_ms": warm_ms, "top": rows[:15]}
+    warm_ms = next(r["step_ms"] for r in warm if r["arch"] == "MAX")
+    out = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+           "unprofiled_step_ms": warm_ms, "top": rows[:15]}
     if busy == 0:
-        print("[train] profiler: no device time seen")
-        return
-    print(f"[train] profile MAX step: device busy {busy:.1f} ms; step "
+        print(f"[{tag}] profiler: no device time seen")
+        return out
+    print(f"[{tag}] profile MAX step: device busy {busy:.1f} ms; step "
           f"{warm_ms:.1f} ms unprofiled (idle share {1 - busy / warm_ms:.3f})"
           f", {wall_ms:.1f} ms profiled")
     for ms, count, name in rows[:12]:
-        print(f"[train]   {ms:8.2f} ms  x{count:<4d} {name[:90]}")
+        print(f"[{tag}]   {ms:8.2f} ms  x{count:<4d} {name[:90]}")
+    return out
 
 
 def phase_eval(ctx):
@@ -483,6 +682,223 @@ def phase_eval(ctx):
     check(tuple(pred.shape) == (1, 1024, 2048), f"eval: shape {pred.shape}")
     ctx["eval"] = results
     ctx["eval_launches"] = dict(LAUNCHES)   # whole inference runs no kernel
+    ctx.pop("model", None)                  # free the card for the ViT
+
+
+# --------------------------------------------------------------------- #
+def _vit_cfg():
+    from gaiaseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(VIT)
+    cfg.merge_from_dict({
+        # the flash gate needs N % 128 == 0: 32x32 patches of a 512x512
+        # crop are 1024 tokens, 1025 with the cls token
+        "model.backbone.with_cls_token": False,
+        "data.train": {"type": "SyntheticDataset", "size": [512, 512],
+                       "length": 16, "num_classes": 19, "seed": 0,
+                       "cells": 8},
+        "data.samples_per_gpu": 8,
+        "img_norm_cfg": {"mean": [123.675, 116.28, 103.53],
+                         "std": [58.395, 57.12, 57.375], "to_rgb": True},
+        "model.test_cfg.mode": "whole",   # slide inference waits
+    })
+    return cfg
+
+
+def _set_flash(model, on: bool) -> None:
+    from gaiaseg_tpu_torch.models.backbones.elastic_transformer import \
+        ElasticMHA
+    for m in model.modules():
+        if isinstance(m, ElasticMHA):
+            m.use_flash = on
+
+
+def phase_vit_segmentor(ctx):
+    """The ViT segmentor's loss and every gradient through the flash
+    kernels equal the dense attention route (bf16 autocast, eval-mode BN,
+    no dropout); the float32 dense route is printed beside them. Two
+    planted faults (K5's dq zeroed, dq halved) must fail the same check."""
+    import contextlib
+    import torch
+    from gaiaseg_tpu_torch.data import SyntheticDataset
+    from gaiaseg_tpu_torch.engine import prepare_batch
+    from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from gaiaseg_tpu_torch.ops.cuda import flash_attention as fa
+
+    @contextlib.contextmanager
+    def dq_scaled(scale):
+        """The autograd backward's dq multiplied by ``scale`` (None: no
+        fault)."""
+        real = fa.flash_bwd_dq
+        if scale is not None:
+            fa.flash_bwd_dq = lambda *args: real(*args) * scale
+        try:
+            yield
+        finally:
+            fa.flash_bwd_dq = real
+
+    cfg = _vit_cfg()
+    model = _build_model(cfg).eval()
+    ds = SyntheticDataset(length=2, size=(512, 512), num_classes=19, seed=5,
+                          cells=8)
+    img, gt = prepare_batch([ds[0], ds[1]], cfg["img_norm_cfg"], "cuda")
+    gt[:, :8] = 255
+    arch = encode_arch(model_max_arch(cfg["model"]))
+    res = {}
+    faults = {"dq x0": 0.0, "dq x0.5": 0.5}
+    for route, flash, bf16, fault in (
+            ("flash", True, True, None), ("dense", False, True, None),
+            ("dense f32", False, False, None),
+            *((f"flash, {k}", True, True, s) for k, s in faults.items())):
+        _set_flash(model, flash)
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+            total, _ = model.forward_train(img, gt, arch)
+        with dq_scaled(fault):
+            total.backward()
+        torch.cuda.synchronize()
+        res[route] = (float(total.detach()), dict(LAUNCHES), {
+            k: p.grad.float().clone() for k, p in model.named_parameters()
+            if p.grad is not None})
+    _set_flash(model, True)
+    check(all(res["flash"][1][k] == 12 for k in FLASH_KERNELS)
+          and not any(res["dense"][1][k] for k in FLASH_KERNELS),
+          f"vit_segmentor: flash launches {res['flash'][1]}, dense "
+          f"{res['dense'][1]}")
+
+    def dist(a, b):
+        """(loss rel, worst per-tensor grad max|d|/max|ref|, its tensor)"""
+        (la, _, ga), (lb, _, gb) = res[a], res[b]
+        check(set(ga) == set(gb), f"vit_segmentor: {a} and {b} reach "
+              "different parameters")
+        worst = max((float((ga[k] - gb[k]).abs().max())
+                     / max(float(gb[k].abs().max()), 1e-30), k) for k in gb)
+        return abs(la - lb) / abs(lb), worst[0], worst[1]
+
+    rel, worst, name = dist("flash", "dense")
+    ref_rel, ref_worst, ref_name = dist("dense", "dense f32")
+    planted = {k: dist(f"flash, {k}", "dense")[1:] for k in faults}
+    ctx["vit_segmentor"] = {"loss": {k: v[0] for k, v in res.items()},
+                            "flash_vs_dense": [rel, worst, name],
+                            "dense_vs_f32": [ref_rel, ref_worst, ref_name],
+                            "planted_vs_dense": planted}
+    print(f"[vit_segmentor] MAX 2x512x512 bf16: loss flash {res['flash'][0]:.6f}"
+          f" dense {res['dense'][0]:.6f} (rel {rel:.2e}); worst per-tensor "
+          f"grad max|d|/max|ref| {worst:.2e} ({name}) over "
+          f"{len(res['dense'][2])} tensors; dense bf16 vs dense float32: loss "
+          f"rel {ref_rel:.2e}, grads {ref_worst:.2e} ({ref_name})")
+    for k, (w, n) in planted.items():
+        print(f"[vit_segmentor] planted fault {k}: worst per-tensor grad "
+              f"max|d|/max|ref| {w:.2e} ({n})")
+    check(rel <= VIT_LOSS_RTOL and worst <= VIT_GRAD_RTOL,
+          f"vit_segmentor: flash vs dense loss rel {rel:.2e}, worst grad "
+          f"{worst:.2e} (tolerances {VIT_LOSS_RTOL}, {VIT_GRAD_RTOL})")
+    check(all(w > VIT_GRAD_RTOL for w, _ in planted.values()),
+          f"vit_segmentor: a planted fault passes the gradient tolerance "
+          f"{VIT_GRAD_RTOL}: {planted}")
+
+
+def phase_vit_train(ctx):
+    import torch
+    from gaiaseg_tpu_torch.archspace import build_model_sampler
+    from gaiaseg_tpu_torch.engine import train_segmentor
+    from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    torch.cuda.empty_cache()
+    cfg = _vit_cfg()
+    torch.backends.cudnn.benchmark = False
+    model = _build_model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[vit_train] elastic-ViT supernet: {n_params / 1e6:.2f} M "
+          "parameters, embed 768, depth 12, 12 heads, FFN 3072, patch 16, "
+          "neck 768 x4, UPer 512 + FCN aux 256, AdamW + clip 1.0")
+    # the cycle's archs: a fresh sampler draws what train_segmentor's will
+    sampler = build_model_sampler(cfg["train_sampler"])
+    metas = [sampler.sample() for _ in range(VIT_ITERS)]
+    max_arch = model_max_arch(cfg["model"])
+    depths = [encode_arch(max_arch, m)["backbone"]["encoder"]["depth"]
+              for m in metas]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    history = train_segmentor(model, cfg, device="cuda", max_iters=VIT_ITERS,
+                              seed=0, log=lambda s: print(f"[vit_train] {s}"))
+    launches = dict(LAUNCHES)
+    ctx["vit_launches"] = launches
+    names = [r["arch"] for r in history]
+    check(names == [m.get("name", "random") for m in metas]
+          == ["MAX", "MIN", "random", "random"],
+          f"vit_train: arch sequence {names}")
+    check(all(math.isfinite(r["loss"]) for r in history),
+          f"vit_train: non-finite loss in {[r['loss'] for r in history]}")
+    for k in FLASH_KERNELS:
+        check(launches[k] == sum(depths),
+              f"vit_train: {k} launched {launches[k]} times, want the sum of "
+              f"the active depths {depths} = {sum(depths)}")
+    for k in ("resize_ce_fwd", "resize_ce_bwd"):
+        check(launches[k] == 2 * len(history),
+              f"vit_train: {k} launched {launches[k]} times in "
+              f"{len(history)} iterations (want 2 per iteration)")
+    warm = train_segmentor(model, cfg, device="cuda", max_iters=VIT_ITERS,
+                           seed=0)
+
+    def img_per_s(hist):
+        return 8 * len(hist) / (sum(r["step_ms"] for r in hist) / 1e3)
+
+    t = ctx["vit_train"] = {
+        "history": history, "warm_history": warm, "depths": depths,
+        "cold_img_per_s": img_per_s(history),
+        "warm_img_per_s": img_per_s(warm),
+        "warm_wall_img_per_s": 8 * len(warm) / (sum(
+            r["step_ms"] + r["data_ms"] for r in warm) / 1e3),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    ctx["vit_profile"] = _profile_max_step(model, cfg, warm, "vit_train")
+    ctx["vit_model"], ctx["vit_cfg"] = model, cfg
+    print(f"[vit_train] launches {launches} over {len(history)} iterations "
+          f"(active depths {depths})")
+    print("[vit_train] warm cycle step ms: " + ", ".join(
+        f"{r['arch']} {r['step_ms']:.1f}" for r in warm))
+    print(f"[vit_train] device step img/s over the cycle: first "
+          f"{t['cold_img_per_s']:.2f}, warm {t['warm_img_per_s']:.2f}; warm "
+          f"with host data {t['warm_wall_img_per_s']:.2f}; on "
+          f"{ctx['nvidia_smi']}; peak memory {t['peak_mem_gb']:.2f} GB")
+
+
+def phase_vit_eval(ctx):
+    import torch
+    from gaiaseg_tpu_torch.archspace import build_model_sampler
+    from gaiaseg_tpu_torch.data import SyntheticDataset
+    from gaiaseg_tpu_torch.engine import evaluate_arch
+    from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    cfg = ctx.get("vit_cfg") or _vit_cfg()
+    model = (ctx.get("vit_model") or _build_model(cfg)).eval()
+    ds = SyntheticDataset(length=4, size=(512, 512), num_classes=19, seed=1,
+                          cells=8)
+    max_arch = model_max_arch(cfg["model"])
+    results = {}
+    for meta in build_model_sampler(cfg["val_sampler"]).traverse():
+        arch = encode_arch(max_arch, meta)
+        depth = arch["backbone"]["encoder"]["depth"]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_arch(model, ds, arch, cfg["img_norm_cfg"], "cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        check(math.isfinite(res["mIoU"]) and 0.0 <= res["mIoU"] <= 1.0,
+              f"vit_eval {meta['name']}: mIoU {res['mIoU']}")
+        check(launches["flash_fwd"] == depth * len(ds)
+              and launches["flash_bwd_dkv"] == launches["flash_bwd_dq"] == 0,
+              f"vit_eval {meta['name']}: launches {launches}, want flash_fwd "
+              f"{depth} per forward x {len(ds)} images and no backward")
+        results[meta["name"]] = {"mIoU": res["mIoU"], "aAcc": res["aAcc"],
+                                 "seconds": dt, "launches": launches}
+        print(f"[vit_eval] {meta['name']}: mIoU {res['mIoU']:.4f} aAcc "
+              f"{res['aAcc']:.4f} on {len(ds)} images 512x512 in {dt:.2f}s; "
+              f"flash_fwd {launches['flash_fwd']} launches (depth {depth})")
+    ctx["vit_eval"] = results
 
 
 # --------------------------------------------------------------------- #
@@ -491,12 +907,20 @@ REPLACES = {
                      "via _sums :175)",
     "resize_ce_bwd": "gaiaseg_tpu/ops/pallas/resize_ce.py:128 (_bwd_kernel "
                      "via _frc_bwd :237)",
+    "flash_fwd": "gaiaseg_tpu/ops/pallas/flash_attention.py:33 (_fa_kernel "
+                 "via _flash_fwd :80)",
+    "flash_bwd_dkv": "gaiaseg_tpu/ops/pallas/flash_attention_bwd.py:29 "
+                     "(_dkv_kernel via flash_attention_bwd :109)",
+    "flash_bwd_dq": "gaiaseg_tpu/ops/pallas/flash_attention_bwd.py:72 "
+                    "(_dq_kernel via flash_attention_bwd :159)",
 }
 
 
 def kernels_line(ctx):
-    """One entry per kernel; times are per train step: its decode-loss and
-    aux-loss launches added."""
+    """One entry per kernel. K1/K2: times per flagship train step (its
+    decode-loss and aux-loss launches added), launches from the flagship
+    train run. K3-K5: times per launch at the ViT train shape, launches
+    from the ViT train cycle."""
     out = []
     timings = ctx.get("kernel_timings", {})
     for k in ("resize_ce_fwd", "resize_ce_bwd"):
@@ -516,6 +940,21 @@ def kernels_line(ctx):
             "bound_by": None if not rows else (
                 "operations" if ops_ms > bytes_ms else "bytes"),
             "library_ms": total("library_ms"),
+        })
+    timings = ctx.get("flash_timings", {})
+    for k in FLASH_KERNELS:
+        r = timings.get(k, {})
+        out.append({
+            "name": k, "route": "cuda",
+            "source": "gaiaseg_tpu_torch/csrc/flash_attention.cu",
+            "replaces": REPLACES[k],
+            "launches": ctx.get("vit_launches", {}).get(k),
+            "max_abs_err": ctx.get("flash_max_abs_err", {}).get(k),
+            "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+            "bound_ms": r.get("bound_ms"),
+            "bound_by": None if not r else (
+                "operations" if r["ops_ms"] > r["bytes_ms"] else "bytes"),
+            "library_ms": r.get("library_ms"),
         })
     return {"kernels": out}
 
@@ -542,10 +981,10 @@ def main(argv) -> int:
         print(f"chip_smoke: the port package is missing beside this file "
               f"({e})", file=sys.stderr)
         return 1
-    if not os.path.isfile(FLAGSHIP):
-        print(f"chip_smoke: flagship config missing: {FLAGSHIP}",
-              file=sys.stderr)
-        return 1
+    for path in (FLAGSHIP, VIT):
+        if not os.path.isfile(path):
+            print(f"chip_smoke: config missing: {path}", file=sys.stderr)
+            return 1
     ctx = {}
     if "device" not in phases:
         phases = ["device"] + phases
@@ -564,9 +1003,18 @@ def main(argv) -> int:
         json.dump({"nvidia_smi": ctx["nvidia_smi"], "tf32": ctx["tf32"],
                    "build_seconds": ctx.get("build_seconds"),
                    "kernel_timings": ctx.get("kernel_timings"),
+                   "kernel_checks": ctx.get("kernel_checks"),
+                   "flash_checks": ctx.get("flash_checks"),
                    "launches": ctx.get("launches"),
                    "train": ctx.get("train"), "profile": ctx.get("profile"),
                    "eval": ctx.get("eval"),
+                   "flash_timings": ctx.get("flash_timings"),
+                   "flash_max_abs_err": ctx.get("flash_max_abs_err"),
+                   "vit_segmentor": ctx.get("vit_segmentor"),
+                   "vit_launches": ctx.get("vit_launches"),
+                   "vit_train": ctx.get("vit_train"),
+                   "vit_profile": ctx.get("vit_profile"),
+                   "vit_eval": ctx.get("vit_eval"),
                    "kernels": line["kernels"]}, f, indent=2, default=str)
     print(json.dumps(line))
     print(ctx["nvidia_smi"])

@@ -2,15 +2,19 @@
 
 Carries weights from the JAX package to the port: ``variables_np`` is the
 JAX ``{'params', 'batch_stats'}`` tree with numpy leaves (no JAX needed
-here). Conv kernels go HWIO -> OIHW; BN ``scale/bias/mean/var`` become
-``weight/bias/running_mean/running_var``; names follow the reference
-mmseg layout the port's modules use, so the JAX package's own
-``segmentor_state_dict_to_variables`` (``engine/torch_convert.py:294``)
-maps the result back. Covers the DynamicResNet (unrolled blocks, plain
-stem) + PSP/FCN segmentor of this slice.
+here). Conv kernels go HWIO -> OIHW and linear kernels ``[in, out]`` ->
+``[out, in]``; BN ``scale/bias/mean/var`` become
+``weight/bias/running_mean/running_var`` and LN ``scale`` ``weight``; the
+ViT's separate ``w_q/w_k/w_v`` become one fused ``qkv``. Names follow the
+reference mmseg / timm layout the port's modules use, so the JAX package's
+own ``segmentor_state_dict_to_variables`` (``engine/torch_convert.py:294``)
+and ``vit_state_dict_to_params`` (``:489``) map the result back. Covers the
+DynamicResNet (unrolled blocks, plain stem) and ElasticTransformer
+backbones, the multi-level neck and the PSP/UPer/FCN heads.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -27,6 +31,19 @@ def conv_state(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if "bias" in p:
         out["bias"] = _t(p["bias"])
     return out
+
+
+def linear_state(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX dense ``{kernel [in, out][, bias]}`` -> ``{weight [out, in]
+    [, bias]}``."""
+    out = {"weight": _t(np.asarray(p["kernel"]).T)}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def ln_state(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
 
 
 def bn_state(p: Dict[str, Any], s: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -72,6 +89,56 @@ def backbone_state_dict(p: Dict[str, Any], s: Dict[str, Any],
     return sd
 
 
+def vit_state_dict(p: Dict[str, Any], prefix: str = "backbone"
+                   ) -> Dict[str, torch.Tensor]:
+    """``backbone_m`` params of an ElasticTransformer -> state_dict."""
+    if any(k.startswith("rel_pos") for k in p.get("layer0", {}).get(
+            "attn", {})):
+        raise NotImplementedError("relative positions wait for a later "
+                                  "slice")
+    pre = f"{prefix}." if prefix else ""
+    sd = {f"{pre}pos_embed": _t(p["pos_embed"])}
+    if "cls_token" in p:
+        sd[f"{pre}cls_token"] = _t(p["cls_token"])
+    _put(sd, pre + "patch_embed.proj", conv_state(p["patch_embed"]))
+    i = 0
+    while f"layer{i}" in p:
+        lp, blk = p[f"layer{i}"], f"{pre}blocks.{i}"
+        attn = lp["attn"]
+        qkv = [linear_state(attn[n]) for n in ("w_q", "w_k", "w_v")]
+        sd[f"{blk}.attn.qkv.weight"] = torch.cat([e["weight"] for e in qkv])
+        sd[f"{blk}.attn.qkv.bias"] = torch.cat([e["bias"] for e in qkv])
+        _put(sd, f"{blk}.attn.proj", linear_state(attn["proj"]))
+        for n in ("norm1", "norm2"):
+            _put(sd, f"{blk}.{n}", ln_state(lp[n]))
+        for n in ("fc1", "fc2"):
+            _put(sd, f"{blk}.mlp.{n}", linear_state(lp[n]))
+        i += 1
+    return sd
+
+
+def neck_state_dict(p: Dict[str, Any], prefix: str = "neck"
+                    ) -> Dict[str, torch.Tensor]:
+    """``neck_m`` params of the multi-level neck (convs with bias, no
+    norm) -> state_dict."""
+    pre = f"{prefix}." if prefix else ""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, mp in p.items():
+        m = re.fullmatch(r"(lateral|conv)(\d+)", name)
+        if m is None:
+            raise NotImplementedError(f"neck submodule {name!r} waits for a "
+                                      "later slice")
+        group = "lateral_convs" if m.group(1) == "lateral" else "convs"
+        _put(sd, f"{pre}{group}.{m.group(2)}.conv", conv_state(mp["conv"]))
+    return sd
+
+
+_HEAD_MODULES = {"bottleneck": "bottleneck", "psp_bottleneck": "bottleneck",
+                 "fpn_bottleneck": "fpn_bottleneck"}
+_HEAD_LISTS = {"conv": "convs", "lateral": "lateral_convs",
+               "fpn_conv": "fpn_convs"}
+
+
 def _head_state_dict(prefix, p, s, cfg) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
 
@@ -80,17 +147,19 @@ def _head_state_dict(prefix, p, s, cfg) -> Dict[str, torch.Tensor]:
         _put(sd, f"{prefix}.{name}.bn", bn_state(mp["bn"], ms["bn"]))
 
     for name in p:
+        listed = re.fullmatch(r"(conv|lateral|fpn_conv)(\d+)", name)
         if name == "conv_seg":
             _put(sd, f"{prefix}.conv_seg", conv_state(p[name]))
-        elif name == "bottleneck":
-            module("bottleneck", p[name], s[name])
+        elif name in _HEAD_MODULES:
+            module(_HEAD_MODULES[name], p[name], s[name])
         elif name == "psp_modules":
             scales = tuple(cfg.get("pool_scales", (1, 2, 3, 6)))
             for i, sc in enumerate(scales):
                 module(f"psp_modules.{i}.1", p[name][f"pool{sc}"],
                        s[name][f"pool{sc}"])
-        elif name.startswith("conv") and name[4:].isdigit():
-            module(f"convs.{name[4:]}", p[name], s[name])
+        elif listed:
+            module(f"{_HEAD_LISTS[listed.group(1)]}.{listed.group(2)}",
+                   p[name], s[name])
         else:
             raise NotImplementedError(f"head submodule {name!r} waits for a "
                                       "later slice")
@@ -102,7 +171,12 @@ def variables_to_state_dict(variables_np: Dict[str, Any],
                             ) -> Dict[str, torch.Tensor]:
     params = variables_np["params"]
     stats = variables_np.get("batch_stats", {})
-    sd = backbone_state_dict(params["backbone_m"], stats["backbone_m"])
+    if "patch_embed" in params["backbone_m"]:
+        sd = vit_state_dict(params["backbone_m"])
+    else:
+        sd = backbone_state_dict(params["backbone_m"], stats["backbone_m"])
+    if "neck_m" in params:
+        sd.update(neck_state_dict(params["neck_m"]))
     sd.update(_head_state_dict("decode_head", params["decode_head_m"],
                                stats["decode_head_m"],
                                dict(model_cfg["decode_head"])))

@@ -1,13 +1,22 @@
-"""SGD + LR schedule from mmcv-style configs.
+"""SGD / AdamW, gradient clipping and the LR schedule from mmcv-style
+configs.
 
-Port of ``gaiaseg_tpu/engine/optim.py`` for the flagship schedule: SGD with
-momentum and weight decay, the ``lr_scaler`` rule and the poly/step/fixed
-schedules, evaluated on the host and set into the optimizer every step.
-AdamW and ``grad_clip`` wait for a later slice.
+Port of ``gaiaseg_tpu/engine/optim.py``: SGD with momentum and weight decay
+or AdamW, ``grad_clip``, the ``lr_scaler`` rule and the poly/step/fixed
+schedules with linear warmup, evaluated on the host and set into the
+optimizer every step.
 
-The JAX chain ``add_decayed_weights(wd) -> trace(momentum) ->
-scale_by_learning_rate`` is torch SGD with ``weight_decay`` and
-``momentum``: ``m = g + wd*p + momentum*m``, ``p -= lr*m``.
+- The JAX chain ``add_decayed_weights(wd) -> trace(momentum) ->
+  scale_by_learning_rate`` is torch SGD with ``weight_decay`` and
+  ``momentum``: ``m = g + wd*p + momentum*m``, ``p -= lr*m``.
+- ``scale_by_adam(b1, b2, eps) -> add_decayed_weights(wd) ->
+  scale_by_learning_rate`` is ``torch.optim.AdamW`` with the same betas,
+  eps and decay on every parameter: ``p -= lr * (m_hat / (sqrt(v_hat) +
+  eps) + wd * p)``.
+- ``clip_by_global_norm`` (first in the chain) is ``clip_grad_norm``
+  below, not ``torch.nn.utils.clip_grad_norm_``: optax scales by
+  ``max_norm / norm`` and only when ``norm >= max_norm``; torch scales by
+  ``max_norm / (norm + 1e-6)`` whenever that is below 1.
 """
 from __future__ import annotations
 
@@ -67,19 +76,48 @@ def build_lr_schedule(lr_config: Optional[Dict], base_lr: float,
 
 
 def build_optimizer(params: Iterable[torch.nn.Parameter],
-                    optimizer_cfg: Dict[str, Any],
-                    optimizer_config: Optional[Dict[str, Any]] = None
-                    ) -> torch.optim.Optimizer:
+                    optimizer_cfg: Dict[str, Any]) -> torch.optim.Optimizer:
+    """SGD or AdamW; the config's ``optimizer_config.grad_clip`` is applied
+    by the train step (``grad_clip_norm``, ``clip_grad_norm``)."""
     cfg = dict(optimizer_cfg)
     opt_type = cfg.pop("type", "SGD").lower()
-    if opt_type != "sgd" or (optimizer_config or {}).get("grad_clip"):
-        raise NotImplementedError(
-            f"optimizer {opt_type!r} / grad_clip wait for a later slice of "
-            "the port (SGD only)")
-    return torch.optim.SGD(params, lr=float(cfg.pop("lr", 0.01)),
-                           momentum=float(cfg.pop("momentum", 0.0)),
-                           weight_decay=float(cfg.pop("weight_decay", 0.0)),
-                           nesterov=bool(cfg.pop("nesterov", False)))
+    lr = float(cfg.pop("lr", 0.01))
+    wd = float(cfg.pop("weight_decay", 0.0))
+    if opt_type == "sgd":
+        return torch.optim.SGD(params, lr=lr,
+                               momentum=float(cfg.pop("momentum", 0.0)),
+                               weight_decay=wd,
+                               nesterov=bool(cfg.pop("nesterov", False)))
+    if opt_type == "adamw":
+        betas = cfg.pop("betas", (0.9, 0.999))
+        return torch.optim.AdamW(params, lr=lr,
+                                 betas=(float(betas[0]), float(betas[1])),
+                                 eps=float(cfg.pop("eps", 1e-8)),
+                                 weight_decay=wd)
+    raise NotImplementedError(f"optimizer {opt_type!r} waits for a later "
+                              "slice of the port (SGD, AdamW)")
+
+
+def grad_clip_norm(optimizer_config: Optional[Dict[str, Any]]
+                   ) -> Optional[float]:
+    """``optimizer_config.grad_clip.max_norm``, or None without clipping."""
+    clip = (optimizer_config or {}).get("grad_clip")
+    return float(clip["max_norm"]) if clip else None
+
+
+@torch.no_grad()
+def clip_grad_norm(params: Iterable[torch.nn.Parameter],
+                   max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place: every gradient times
+    ``max_norm / norm`` when the global norm is at least ``max_norm``.
+    Returns the norm before clipping (no host sync)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

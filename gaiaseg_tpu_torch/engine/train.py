@@ -1,7 +1,8 @@
 """Supernet training: the train step and a short loop.
 
 Port of ``gaiaseg_tpu/engine/train.py``: per iteration one arch from the
-sandwich sampler, the poly LR set on the host, one SGD step of
+sandwich sampler, the LR schedule set on the host, one optimizer step (SGD
+or AdamW, with the config's global-norm gradient clip) of
 ``forward_train``, losses logged.
 
 The step has the semantics of the JAX ``make_train_step(update_stats=True)``
@@ -27,8 +28,8 @@ from ..archspace.samplers import build_model_sampler
 from ..data.datasets import build_dataset
 from ..models.arch_util import encode_arch, model_max_arch
 from ..utils.device import resolve_device
-from .optim import build_lr_schedule, build_optimizer, scale_lr, \
-    set_learning_rate
+from .optim import build_lr_schedule, build_optimizer, clip_grad_norm, \
+    grad_clip_norm, scale_lr, set_learning_rate
 
 DEFAULT_NORM = dict(mean=[123.675, 116.28, 103.53],
                     std=[58.395, 57.12, 57.375])
@@ -66,19 +67,24 @@ def prepare_batch(samples: Sequence[Dict[str, np.ndarray]],
 
 def train_step(model, optimizer: torch.optim.Optimizer, img: torch.Tensor,
                gt: torch.Tensor, arch: Dict[str, Any],
-               generator: Optional[torch.Generator] = None
-               ) -> Dict[str, torch.Tensor]:
-    """One SGD step of ``model.forward_train`` at ``arch`` (the model is in
-    train mode). Returns the detached losses."""
+               generator: Optional[torch.Generator] = None,
+               max_norm: Optional[float] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step of ``model.forward_train`` at ``arch`` (the model
+    is in train mode), the gradients first clipped to the global norm
+    ``max_norm`` when it is given. Returns the detached losses (and the
+    gradient norm before clipping)."""
     optimizer.zero_grad(set_to_none=False)
     with autocast(img.device):
         total, logs = model.forward_train(img, gt, arch, generator)
     total.backward()
     for p in model.parameters():
-        if p.grad is None:   # outside this subnet: decay + momentum only
+        if p.grad is None:   # outside this subnet: decay + moments only
             p.grad = torch.zeros_like(p)
+    out = {"loss": total.detach(), **{k: v.detach() for k, v in logs.items()}}
+    if max_norm is not None:
+        out["grad_norm"] = clip_grad_norm(model.parameters(), max_norm)
     optimizer.step()
-    return {"loss": total.detach(), **{k: v.detach() for k, v in logs.items()}}
+    return out
 
 
 def _max_iters(cfg) -> int:
@@ -121,8 +127,8 @@ def train_segmentor(model, cfg, *, device="cuda", train_dataset=None,
                              cfg.get("lr_scaler"))
     schedule = build_lr_schedule(cfg.get("lr_config"), opt_cfg["lr"],
                                  max_iters)
-    optimizer = build_optimizer(model.parameters(), opt_cfg,
-                                cfg.get("optimizer_config"))
+    optimizer = build_optimizer(model.parameters(), opt_cfg)
+    max_norm = grad_clip_norm(cfg.get("optimizer_config"))
     max_arch = model_max_arch(cfg["model"])
     norm = dict(cfg.get("img_norm_cfg") or DEFAULT_NORM)
     generator = torch.Generator(device=device)
@@ -140,7 +146,8 @@ def train_segmentor(model, cfg, *, device="cuda", train_dataset=None,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t1 = time.perf_counter()
-        logs = train_step(model, optimizer, img, gt, arch, generator)
+        logs = train_step(model, optimizer, img, gt, arch, generator,
+                          max_norm)
         vals = {k: float(v) for k, v in logs.items()}   # syncs the step
         t2 = time.perf_counter()
         rec = {"iter": it + 1, "arch": meta.get("name", "random"),

@@ -12,7 +12,7 @@ import inspect
 import logging
 from typing import Any, Dict, Optional, Sequence
 
-from ..utils.registry import BACKBONES, HEADS, LOSSES, SEGMENTORS
+from ..utils.registry import BACKBONES, HEADS, LOSSES, NECKS, SEGMENTORS
 
 logger = logging.getLogger("gaiaseg_tpu_torch")
 
@@ -70,22 +70,38 @@ def build_backbone(cfg: Dict[str, Any]):
     return _build_filtered(BACKBONES, cfg)
 
 
+def _in_channels(cfg: Dict[str, Any], channels: Sequence[int],
+                 idx) -> Any:
+    """The MAX input channels at ``idx`` (an int or a list) of the
+    producer's outputs; a config value that disagrees raises."""
+    in_ch = [int(channels[i]) for i in idx] \
+        if isinstance(idx, (list, tuple)) else int(channels[idx])
+    given = cfg.get("in_channels")
+    if given is not None:
+        given = [int(c) for c in given] if isinstance(given, (list, tuple)) \
+            else int(given)
+        if given != in_ch:
+            raise ValueError(f"{cfg.get('type')} in_channels={given} but its "
+                             f"input gives {in_ch} channels at {idx}")
+    return in_ch
+
+
+def build_neck(cfg: Dict[str, Any], backbone_channels: Sequence[int]):
+    """Build a neck over all of the backbone's outputs."""
+    return _build_filtered(NECKS, cfg, in_channels=_in_channels(
+        cfg, backbone_channels, list(range(len(backbone_channels)))))
+
+
 def build_head(cfg: Dict[str, Any], backbone_channels: Sequence[int]):
     """Build a decode head; its MAX ``in_channels`` follow from the
-    backbone's output channels at ``in_index`` (a config value that
-    disagrees raises)."""
+    backbone's (or neck's) output channels at ``in_index``."""
     _check_norm_cfg(cfg)
     idx = cfg.get("in_index", -1)
-    if not isinstance(idx, int) or cfg.get("input_transform"):
-        raise NotImplementedError(
-            "heads with input_transform / a list in_index wait for a later "
-            "slice of the port")
-    in_ch = int(backbone_channels[idx])
-    given = cfg.get("in_channels")
-    if given is not None and int(given) != in_ch:
-        raise ValueError(f"head in_channels={given} but the backbone gives "
-                         f"{in_ch} channels at in_index={idx}")
-    return _build_filtered(HEADS, cfg, in_channels=in_ch)
+    if cfg.get("input_transform") == "multiple_select":
+        idx = [int(i) for i in idx]
+    return _build_filtered(HEADS, cfg, in_index=idx,
+                           in_channels=_in_channels(cfg, backbone_channels,
+                                                    idx))
 
 
 def build_loss(cfg: Dict[str, Any]):

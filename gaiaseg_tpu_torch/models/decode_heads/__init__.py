@@ -1,4 +1,5 @@
 from .fcn_head import DynamicFCNHead
 from .psp_head import DynamicPSPHead
+from .uper_head import DynamicUPerHead
 
-__all__ = ["DynamicPSPHead", "DynamicFCNHead"]
+__all__ = ["DynamicPSPHead", "DynamicFCNHead", "DynamicUPerHead"]

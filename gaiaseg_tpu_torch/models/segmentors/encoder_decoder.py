@@ -1,7 +1,8 @@
 """DynamicEncoderDecoder: the supernet segmentor.
 
-Port of ``gaiaseg_tpu/models/segmentors/encoder_decoder.py``: backbone ->
-decode head (+ aux heads), losses of logits resized to label size, and
+Port of ``gaiaseg_tpu/models/segmentors/encoder_decoder.py``: backbone
+(-> neck) -> decode head (+ aux heads, which read the neck's outputs too),
+losses of logits resized to label size, and
 whole-mode inference. The train step's mode is ``forward_train`` with
 ``compute_acc=False`` (``engine/train.py:97`` of the JAX package), which is
 the only mode here. Slide inference and TTA wait for a later slice.
@@ -16,7 +17,7 @@ from torch import nn
 from ...ops.cuda.resize_ce import fused_resize_ce, supports_fused_resize_ce
 from ...ops.resize import resize_bilinear
 from ...utils.registry import SEGMENTORS
-from ..builder import build_backbone, build_head, build_loss
+from ..builder import build_backbone, build_head, build_loss, build_neck
 from ..losses.cross_entropy import CrossEntropyLoss
 
 
@@ -34,10 +35,11 @@ class DynamicEncoderDecoder(nn.Module):
                  test_cfg: Optional[Dict[str, Any]] = None,
                  fused_loss: Optional[bool] = None):
         super().__init__()
-        if neck:
-            raise NotImplementedError("necks wait for a later slice")
         self.backbone = build_backbone(backbone)
         chans = self.backbone.out_channels()
+        self.neck = build_neck(neck, chans) if neck else None
+        if self.neck is not None:
+            chans = self.neck.out_channels()
         self.decode_head = build_head(decode_head, chans)
         aux = [] if auxiliary_head is None else (
             list(auxiliary_head) if isinstance(auxiliary_head, (list, tuple))
@@ -68,7 +70,8 @@ class DynamicEncoderDecoder(nn.Module):
 
     # ------------------------------------------------------------------ #
     def extract_feat(self, img: torch.Tensor, arch: Dict[str, Any]):
-        return self.backbone(img, arch["backbone"])
+        feats = self.backbone(img, arch["backbone"])
+        return self.neck(feats) if self.neck is not None else feats
 
     def encode_decode(self, img: torch.Tensor,
                       arch: Dict[str, Any]) -> torch.Tensor:

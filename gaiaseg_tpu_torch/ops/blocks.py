@@ -16,18 +16,33 @@ from .dynamic_layers import DynBatchNorm, DynConv2d
 
 
 class DynConvModule(nn.Module):
-    """conv -> BN -> ReLU, sliced to ``out_channels`` (default: MAX)."""
+    """conv -> norm -> act, sliced to ``out_channels`` (default: MAX).
+
+    ``norm`` is ``"bn"`` or None, ``act`` ``"relu"`` or None; the conv has
+    a bias iff there is no norm, unless ``bias`` says otherwise (the JAX
+    rule, ``gaiaseg_tpu/ops/blocks.py:40-51``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, stride: int = 1, dilation: int = 1):
+                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+                 norm: Optional[str] = "bn", act: Optional[str] = "relu",
+                 bias: Optional[bool] = None):
         super().__init__()
+        if norm not in ("bn", None) or act not in ("relu", None):
+            raise NotImplementedError(
+                f"DynConvModule norm={norm!r} act={act!r}: the port has "
+                "norm 'bn' / None and act 'relu' / None")
         self.conv = DynConv2d(in_channels, out_channels, kernel_size, stride,
-                              dilation, bias=False)
-        self.bn = DynBatchNorm(out_channels)
+                              dilation, bias=norm is None if bias is None
+                              else bias)
+        self.bn = DynBatchNorm(out_channels) if norm == "bn" else None
+        self.act = act
 
     def forward(self, x: torch.Tensor, out_channels: Optional[int] = None,
                 in_tail: int = 0) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x, out_channels, in_tail)))
+        y = self.conv(x, out_channels, in_tail)
+        if self.bn is not None:
+            y = self.bn(y)
+        return F.relu(y) if self.act == "relu" else y
 
 
 class DynBottleneck(nn.Module):

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels (sources in ``gaiaseg_tpu_torch/csrc``), their
-ctypes bindings, launch counters and plain torch versions."""
-from .resize_ce import (LAUNCHES, fused_resize_ce, fused_resize_ce_reference,
-                        reset_launches, supports_fused_resize_ce)
+ctypes bindings, launch counters and plain torch versions: ``resize_ce``
+(K1, K2) and ``flash_attention`` (K3, K4, K5)."""
+from .build import LAUNCHES, reset_launches
+from .resize_ce import (fused_resize_ce, fused_resize_ce_reference,
+                        supports_fused_resize_ce)
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_resize_ce",
            "fused_resize_ce_reference", "supports_fused_resize_ce"]

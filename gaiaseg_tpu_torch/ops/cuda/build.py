@@ -22,9 +22,21 @@ from typing import Dict, Sequence
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNEL_SOURCES = ("resize_ce",)
+KERNEL_SOURCES = ("resize_ce", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+# launches of each kernel since the last reset, counted by its wrapper where
+# it launches (K1's two launches, the per-block pass and the one-block
+# reduction, count as one)
+LAUNCHES = {"resize_ce_fwd": 0, "resize_ce_bwd": 0, "flash_fwd": 0,
+            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def nvcc_path() -> str:

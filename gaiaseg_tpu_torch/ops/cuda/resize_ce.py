@@ -33,15 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-
-# launches of each kernel since the last reset (K1's two launches, the
-# per-block pass and the one-block reduction, count as one)
-LAUNCHES = {"resize_ce_fwd": 0, "resize_ce_bwd": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 
 
 def interp_matrix(in_size: int, out_size: int) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Sliced dynamic layers: DynConv2d and DynBatchNorm.
+"""Sliced dynamic layers: DynConv2d, DynBatchNorm, DynLinear, DynLayerNorm.
 
 Port of ``gaiaseg_tpu/ops/dynamic_layers.py``. The JAX package keeps every
 parameter at MAX shape and MASKS inactive channels, so one XLA program
@@ -8,7 +8,8 @@ MAX shape and a subnet runs on PREFIX SLICES of them. ``tests/
 test_dynamic_ops.py`` holds masking equal to slicing, so the two agree on
 every active channel.
 
-Layout is NCHW, parameters OIHW (the reference mmseg ``state_dict``).
+Layout is NCHW, parameters OIHW and linear weights ``[out, in]`` (the
+reference mmseg / timm ``state_dict``).
 """
 from __future__ import annotations
 
@@ -33,21 +34,24 @@ class DynConv2d(nn.Module):
     ``[elastic prefix, static tail]`` (the PSP bottleneck): the prefix takes
     rows ``[:in_ch - in_tail]`` and the tail the LAST ``in_tail`` rows
     (``gaiaseg_tpu/ops/dynamic_layers.py:137-151``). ``out_channels``
-    truncates the produced channels. Padding is torch's symmetric
-    ``dilation * (k - 1) // 2``.
+    truncates the produced channels. ``padding=None`` is torch's symmetric
+    ``dilation * (k - 1) // 2``; an int or pair pads symmetrically by that
+    (0 for the ViT patch embed).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Union[int, Tuple[int, int]] = 3,
                  stride: Union[int, Tuple[int, int]] = 1,
                  dilation: Union[int, Tuple[int, int]] = 1,
-                 bias: bool = False):
+                 bias: bool = False,
+                 padding: Optional[Union[int, Tuple[int, int]]] = None):
         super().__init__()
         kh, kw = _pair(kernel_size)
         self.stride = _pair(stride)
         self.dilation = _pair(dilation)
         self.padding = (self.dilation[0] * (kh - 1) // 2,
-                        self.dilation[1] * (kw - 1) // 2)
+                        self.dilation[1] * (kw - 1) // 2) \
+            if padding is None else _pair(padding)
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kh, kw))
         # the JAX init: variance_scaling(2.0, "fan_out", truncated normal)
@@ -99,3 +103,42 @@ class DynBatchNorm(nn.Module):
         return F.batch_norm(x, self.running_mean[:c], self.running_var[:c],
                             self.weight[:c], self.bias[:c], self.training,
                             self.momentum, self.eps)
+
+
+class DynLinear(nn.Module):
+    """Linear over a prefix slice of a MAX-shape ``[out, in]`` weight
+    (``gaiaseg_tpu/ops/dynamic_layers.py:189-219``): the input width picks
+    the columns, ``out_features`` truncates the rows."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        # the JAX init: lecun_normal (truncated normal, variance 1/fan_in)
+        nn.init.trunc_normal_(self.weight, std=in_features ** -0.5)
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor,
+                out_features: Optional[int] = None) -> torch.Tensor:
+        w, b = self.weight[:, :x.shape[-1]], self.bias
+        if out_features is not None and out_features < w.shape[0]:
+            w = w[:out_features]
+            b = b[:out_features] if b is not None else None
+        return F.linear(x, w, b)
+
+
+class DynLayerNorm(nn.Module):
+    """LayerNorm over the last ``x.shape[-1]`` channels with the prefix of
+    MAX-shape ``weight``/``bias`` (``gaiaseg_tpu/ops/dynamic_layers.py:
+    341-386``: mean and variance over the active channels only). ``eps``
+    is the JAX module's 1e-6, not torch's 1e-5."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[-1]
+        return F.layer_norm(x, (c,), self.weight[:c], self.bias[:c], self.eps)

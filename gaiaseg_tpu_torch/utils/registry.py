@@ -93,6 +93,7 @@ def build_from_cfg(cfg: Dict[str, Any], registry: Registry,
 # The port's own registries: ``type=`` strings in the shared config files
 # resolve to torch classes here (the JAX package keeps its own instances).
 BACKBONES = Registry("backbone")
+NECKS = Registry("neck")
 HEADS = Registry("head")
 SEGMENTORS = Registry("segmentor")
 LOSSES = Registry("loss")

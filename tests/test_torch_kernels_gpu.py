@@ -89,3 +89,74 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
         rc.resize_ce_grad_mid(mid, torch.zeros(2, 16, 16, dtype=torch.int32,
                                                device=cuda),
                               torch.ones(2, device=cuda), 16)
+
+
+# --------------------------------------------------------------------- #
+# flash attention: K3 (flash_fwd), K4 (flash_bwd_dkv), K5 (flash_bwd_dq)
+from gaiaseg_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+
+ATTN_SHAPES = [(8, 1024, 12), (2, 1025, 12), (1, 200, 2), (1, 3, 1)]
+
+
+def _attn(b, n, h, dtype, device, seed=0):
+    """q pre-scaled; k and v as strided views into one kv tensor."""
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(b, n, h, 64).astype(np.float32) * 0.125)
+    kv = torch.from_numpy(rng.randn(b, n, 2, h, 64).astype(np.float32))
+    do = torch.from_numpy(rng.randn(b, n, h, 64).astype(np.float32))
+    q, kv, do = (x.to(device=device, dtype=dtype) for x in (q, kv, do))
+    return q, kv[:, :, 0], kv[:, :, 1], do
+
+
+def _rel(got, ref):
+    scale = float(ref.float().abs().max())
+    return float((got.float() - ref.float()).abs().max()) / max(scale, 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_flash_kernels_match_plain(cuda, shape, dtype):
+    """Each kernel against its plain version on the same inputs: float32
+    outputs within 1e-4 of max|ref| (summation order), bf16 within 2e-2
+    (bf16 outputs, and P / dS rounded to bf16 as tensor-core operands); m
+    and l within 1e-4. Each wrapper counts one launch."""
+    q, k, v, do = _attn(*shape, dtype, cuda)
+    before = dict(fa.LAUNCHES)
+    o, m, l = fa.flash_fwd(q, k, v)
+    ro, rm, rl = fa.flash_fwd_reference(q, k, v)
+    di = fa.attention_di(ro, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, rm, rl, di)
+    dq = fa.flash_bwd_dq(q, k, v, do, rm, rl, di)
+    rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, rm, rl, di)
+    rdq = fa.flash_bwd_dq_reference(q, k, v, do, rm, rl, di)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel(m, rm) <= 1e-4 and _rel(l, rl) <= 1e-4
+    for got, ref in ((o, ro), (dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == dtype and _rel(got, ref) <= tol
+    for key in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert fa.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.gpu
+def test_flash_autograd_matches_plain(cuda):
+    """flash_attention's gradients (K4 + K5 behind the autograd Function)
+    against autograd through the plain forward, bf16, 2e-2 of max|ref|."""
+    q, k, v, do = _attn(2, 256, 4, torch.bfloat16, cuda, seed=1)
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    grads = torch.autograd.grad(fa.flash_attention(*xs), xs, do)
+    rs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    rgrads = torch.autograd.grad(fa.flash_fwd_reference(*rs)[0], rs, do)
+    for g, r in zip(grads, rgrads):
+        assert _rel(g, r) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_flash_wrappers_raise_on_bad_input(cuda):
+    q, k, v, _ = _attn(1, 64, 2, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):        # head dim other than 64
+        fa.flash_fwd(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError):        # float16
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):        # mixed dtypes
+        fa.flash_fwd(q, k.float(), v)
