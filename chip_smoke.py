@@ -9,7 +9,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   the card (nvidia-smi name and power limit), torch/CUDA versions,
             the TF32 settings.
-2. build    nvcc builds every kernel of ``gaiaseg_tpu_torch/csrc``.
+2. build    nvcc builds every kernel of ``gaiaseg_tpu_torch/csrc`` and prints
+            each kernel's registers and spills from ptxas; the bf16
+            backward kernels (K4, K5) must not spill.
 3. kernels  K1 (``resize_ce_fwd``) and K2 (``resize_ce_bwd``) against their
             plain torch versions at the flagship and the ViT loss shapes
             (float32 and bf16 logits), the test shapes, all-ignored labels;
@@ -29,9 +31,12 @@ Phases, each printing its own lines; any failure exits non-zero:
             two synthetic 1024x2048 images, confusion-matrix mIoU.
 7. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
             (``flash_bwd_dq``) against their plain torch versions at the ViT
-            shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025 and
-            200 (ragged tails) and on all-zero q/k/v; then their times beside
-            the plain version, SDPA and the bound.
+            shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025, 200
+            (ragged tails) and 1088 (a half-empty last 128-row block) and
+            on all-zero q/k/v; K4 and K5 run twice must agree bit for bit.
+            Then their times beside the plain version, SDPA and the bound,
+            and the port's whole attention backward (``attention_di`` + K4
+            + K5) beside SDPA's backward, in turns.
 8. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
             the flash kernels equal the dense attention route (bf16); two
             planted faults in dq (zeroed, halved) must fail that check.
@@ -57,6 +62,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +76,11 @@ VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
 PHASES = ("device", "build", "kernels", "segmentor", "train", "eval",
           "flash_kernels", "vit_segmentor", "vit_train", "vit_eval")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# device functions of csrc/*.cu, as ptxas and the profiler name them
+REPO_KERNELS = ("fwd_kernel", "reduce_kernel", "bwd_kernel", "fwd_mma",
+                "bwd_dkv_wgmma", "bwd_dq_wgmma", "fwd_f32", "bwd_dkv_f32",
+                "bwd_dq_f32")
+NO_SPILL = ("bwd_dkv_wgmma", "bwd_dq_wgmma")
 VIT_ITERS = 4     # one sandwich cycle: MAX, MIN, 2 random
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
@@ -140,17 +151,65 @@ def phase_device(ctx):
     print(f"[device] tf32 {ctx['tf32']}")
 
 
+def _kernel_name(mangled: str) -> str:
+    """A device function's name (with its template arguments) out of its
+    mangled name, e.g. ``_ZN<ns>13bwd_dkv_wgmmaE...`` -> bwd_dkv_wgmma."""
+    rest, parts = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        n = int(digits)
+        parts.append(rest[len(digits):len(digits) + n])
+        rest = rest[len(digits) + n:]
+    name = parts[-1] if parts else mangled
+    if rest.startswith("I") and "E" in rest:
+        name += f"<{rest[1:rest.index('E')]}>"
+    return name
+
+
+def _ptxas(log: str) -> dict:
+    """{kernel: registers, static shared memory, spill bytes} from nvcc's
+    ``-Xptxas=-v`` output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
 def phase_build(ctx):
     from gaiaseg_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
     res = build.build()
     secs = time.perf_counter() - t0
     ctx["build_seconds"] = secs
+    ctx["ptxas"] = {}
     for name, r in res.items():
         print(f"[build] {name}: {r['path']} ({r['seconds']:.1f}s)")
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+        kernels = _ptxas(r["log"])
+        ctx["ptxas"].update(kernels)
+        for k, v in kernels.items():
+            print(f"[build]   {k}: {v.get('registers')} registers, "
+                  f"{v.get('static_smem')} B static smem, spills "
+                  f"{v.get('spill_stores')} B stored / {v.get('spill_loads')}"
+                  " B loaded")
+    if res["flash_attention"]["log"]:        # built now, not found built
+        for k in NO_SPILL:
+            v = ctx["ptxas"].get(k, {})
+            check(v.get("spill_stores") == 0 and v.get("spill_loads") == 0,
+                  f"build: {k} spills or is missing from ptxas' output: {v}")
     print(f"[build] all kernels built in {secs:.1f}s")
 
 
@@ -356,8 +415,9 @@ def _attn_inputs(b, n, h, dtype, seed, zeros=False):
 
 def _check_flash(name, shape, dtype, seed, errs, log, zeros=False):
     """K3, K4 and K5 against their plain versions on the same inputs; every
-    output within its tolerance of max|ref|. Each output's max|d| and
-    max|ref| are appended to ``log``."""
+    output within its tolerance of max|ref|; K4 and K5 launched again on the
+    same inputs give the same bits. Each output's max|d| and max|ref| are
+    appended to ``log``."""
     import torch
     from gaiaseg_tpu_torch.ops.cuda import flash_attention as fa
     q, k, v, do = _attn_inputs(*shape, dtype, seed, zeros)
@@ -366,6 +426,12 @@ def _check_flash(name, shape, dtype, seed, errs, log, zeros=False):
     di = fa.attention_di(ro, do)           # both backward paths get ref's
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, rm, rl, di)
     dq = fa.flash_bwd_dq(q, k, v, do, rm, rl, di)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, rm, rl, di)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, rm, rl, di)
+    check(torch.equal(dk, dk2) and torch.equal(dv, dv2)
+          and torch.equal(dq, dq2),
+          f"{name} {str(dtype)[6:]}: K4/K5 launched twice on the same inputs "
+          "give different bits")
     rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, rm, rl, di)
     rdq = fa.flash_bwd_dq_reference(q, k, v, do, rm, rl, di)
     bf16 = dtype == torch.bfloat16
@@ -390,7 +456,7 @@ def _check_flash(name, shape, dtype, seed, errs, log, zeros=False):
                     "max_ref": scale})
         line.append(f"{key} {err:.1e}/{scale:.1e}")
     print(f"[flash_kernels] {name:<14} {str(dtype)[6:]:<8} max|d|/max|ref| "
-          + " ".join(line))
+          + " ".join(line) + " | K4/K5 twice: bit-equal")
 
 
 def _flash_bounds(b, n, h):
@@ -419,6 +485,7 @@ def phase_flash_kernels(ctx):
         _check_flash("vit", full, dtype, 1, errs, log)
         _check_flash("cls-token", (2, 1025, 12), dtype, 2, errs, log)
         _check_flash("n200", (1, 200, 2), dtype, 3, errs, log)
+        _check_flash("n1088", (1, 1088, 2), dtype, 6, errs, log)
     _check_flash("zeros", (2, 1024, 12), torch.bfloat16, 4, errs, log,
                  zeros=True)
     q, k, v, _ = _attn_inputs(2, 1024, 12, torch.bfloat16, 4, zeros=True)
@@ -472,9 +539,30 @@ def phase_flash_kernels(ctx):
               f"bound: operations {r['ops_ms']:.4f} ms, bytes "
               f"{r['bytes_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} "
               "reached)")
-    print("[flash_kernels] SDPA backward computes dq, dk and dv in one call: "
-          "compare it with flash_bwd_dkv + flash_bwd_dq")
     ctx["flash_timings"] = rows
+
+    # like for like: SDPA's backward includes its own rowsum(dO * O) pass,
+    # so the port's is attention_di + K4 + K5, as _FlashAttention.backward
+    # runs it; timed in turns SDPA, port, port, SDPA
+    def port_bwd():
+        d = fa.attention_di(o, do)
+        fa.flash_bwd_dkv(q, k, v, do, m, l, d)
+        fa.flash_bwd_dq(q, k, v, do, m, l, d)
+
+    turns = {"sdpa": [], "port": []}
+    for who, fn in (("sdpa", lib_bwd), ("port", port_bwd), ("port", port_bwd),
+                    ("sdpa", lib_bwd)):
+        turns[who].append(_time_ms(fn, flush))
+    di_ms = _time_ms(lambda: fa.attention_di(o, do), flush)
+    port_ms, sdpa_ms = (sum(turns[w]) / 2 for w in ("port", "sdpa"))
+    ctx["flash_backward"] = {"port_ms": turns["port"],
+                             "sdpa_ms": turns["sdpa"],
+                             "attention_di_ms": di_ms}
+    print(f"[flash_kernels] time whole backward (dq, dk, dv from q, k, v, o, "
+          f"dO): port attention_di + K4 + K5 {turns['port'][0]:.4f} / "
+          f"{turns['port'][1]:.4f} ms, SDPA backward {turns['sdpa'][0]:.4f} / "
+          f"{turns['sdpa'][1]:.4f} ms (port / SDPA {port_ms / sdpa_ms:.3f}); "
+          f"attention_di alone {di_ms:.4f} ms")
 
 
 # --------------------------------------------------------------------- #
@@ -636,8 +724,15 @@ def _profile_max_step(model, cfg, warm, tag):
     rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
                   reverse=True)
     warm_ms = next(r["step_ms"] for r in warm if r["arch"] == "MAX")
+    ours = {}
+    for ms, n, name in rows:           # the repo's kernels, however small
+        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
+        if m and m.group(1) in REPO_KERNELS:
+            ms0, n0 = ours.get(m.group(1), (0.0, 0))
+            ours[m.group(1)] = (ms0 + ms, n0 + n)
     out = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
-           "unprofiled_step_ms": warm_ms, "top": rows[:15]}
+           "unprofiled_step_ms": warm_ms, "top": rows[:15],
+           "repo_kernels": ours}
     if busy == 0:
         print(f"[{tag}] profiler: no device time seen")
         return out
@@ -646,6 +741,8 @@ def _profile_max_step(model, cfg, warm, tag):
           f", {wall_ms:.1f} ms profiled")
     for ms, count, name in rows[:12]:
         print(f"[{tag}]   {ms:8.2f} ms  x{count:<4d} {name[:90]}")
+    print(f"[{tag}] the repo's kernels in that step: " + ", ".join(
+        f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in ours.items()))
     return out
 
 
@@ -1002,6 +1099,7 @@ def main(argv) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": ctx["nvidia_smi"], "tf32": ctx["tf32"],
                    "build_seconds": ctx.get("build_seconds"),
+                   "ptxas": ctx.get("ptxas"),
                    "kernel_timings": ctx.get("kernel_timings"),
                    "kernel_checks": ctx.get("kernel_checks"),
                    "flash_checks": ctx.get("flash_checks"),
@@ -1009,6 +1107,7 @@ def main(argv) -> int:
                    "train": ctx.get("train"), "profile": ctx.get("profile"),
                    "eval": ctx.get("eval"),
                    "flash_timings": ctx.get("flash_timings"),
+                   "flash_backward": ctx.get("flash_backward"),
                    "flash_max_abs_err": ctx.get("flash_max_abs_err"),
                    "vit_segmentor": ctx.get("vit_segmentor"),
                    "vit_launches": ctx.get("vit_launches"),

@@ -18,31 +18,41 @@
 //   dV = P^T dO,  dS = P * (dO V^T - di),  dK = dS^T Q,  dQ = dS K,
 // with di = rowsum(dO * O) computed by the caller.
 //
-// Tiling. A block owns 64 rows of its (b, h): q rows in K3 and K5, key rows
-// in K4, and loops over the other side in 64-row tiles staged in shared
-// memory. Each block writes only its own rows: no atomics, deterministic.
-// Keys past N are masked (-1e30 scores, as the TPU kernel does); rows past
-// N are loaded as zeros and never stored.
+// Forward (K3, bf16: fwd_mma). A block owns 64 q rows and loops over 64-row
+// key tiles staged in shared memory, mma.sync m16n8k16 (bf16 operands,
+// float32 accumulators), four warps of 16 rows. The S fragments, rounded to
+// bf16, are the A fragments of P V: scores never leave registers. Keys past
+// N are masked (-1e30 scores, as the TPU kernel does).
 //
-// Products. For bf16 inputs every product runs on the tensor cores through
-// mma.sync m16n8k16 (bf16 operands, float32 accumulators), four warps a
-// block, 16 rows a warp. The accumulator fragment of one product is, after
-// rounding to bf16, the A fragment of the next (P and dS), so scores never
-// leave registers. The softmax recurrence and the statistics stay float32.
-// For float32 inputs the same tiling runs with float32 FMA on the CUDA cores,
-// one thread a row; that path exists for float32 checks.
+// Backward (K4, K5, bf16: bwd_dkv_wgmma, bwd_dq_wgmma). A block owns 128
+// rows of one (b, h) (key rows in K4, q rows in K5), 64 for each of two
+// consumer warpgroups, loaded once by TMA; one producer warp streams the
+// other side in 64-row tiles through a 3-stage ring (TMA into 128-byte
+// swizzled tiles, mbarriers), so copies overlap the products. Every product
+// is a wgmma m64n64k16 with float32 accumulators: the first two of a tile
+// read both operands from shared memory, K-major; P^T, dS^T (K4) and dS (K5)
+// stay in registers and, rounded to bf16, are the A operand of the last
+// products, whose B tiles (dO and Q in K4, K in K5) are read MN-major by the
+// descriptor's transpose bit, so no tile is transposed by hand. The softmax
+// is recomputed as exp2(s log2e - lse2), lse2 = (m + log max(l, 1e-30))
+// log2e once per row: no division or expf in the inner loop. Each block
+// writes only its own rows: no atomics, bit-reproducible.
+//
+// For float32 inputs the same 64-row tiling runs with float32 FMA on the
+// CUDA cores, one thread a row; that path exists for float32 checks.
 //
 // What bounds it on the H100. At the ViT shape (B 8, H 12, N 1024) K3 does
 // 4*B*H*N^2*64 = 25.8 GFLOP (26 us at 989 TFLOP/s bf16) and moves ~51 MB
 // (15 us at 3.35 TB/s); K4 8*B*H*N^2*64 (52 us), K5 6*B*H*N^2*64 (39 us). All
-// three are bound by the tensor cores. This first version uses mma.sync
-// with plain loads into shared memory, no wgmma, TMA or warp specialisation,
-// so it reaches a fraction of that rate; making it fast is later work.
+// three are bound by the tensor cores. K3 is still the first, simple
+// version (mma.sync, synchronous staging); its redesign is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -283,121 +293,319 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
   }
 }
 
-// K4: grid (key tiles, H, B); warp w owns key rows k0 + 16w ... Key rows
-// past N need no mask: each feeds only its own (unstored) dK/dV row.
-__global__ void __launch_bounds__(kThreads) bwd_dkv_mma(Args a) {
-  __shared__ __align__(16) bf16 Qs[kTile * kLd];
-  __shared__ __align__(16) bf16 Qt[kTile * kLd];
-  __shared__ __align__(16) bf16 Ds[kTile * kLd];
-  __shared__ __align__(16) bf16 Dt[kTile * kLd];
-  __shared__ float sm[kTile], sl[kTile], sdi[kTile];
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
+// ---------------------------------------------------------------------------
+// bf16 backward (K4, K5) on wgmma, fed by TMA (helpers in hopper.cuh)
+//
+// A block owns 128 rows of one (b, h), 64 for each of its two consumer
+// warpgroups, and loads them once; one producer warp streams the other side
+// through a ring of kStages 64-row tiles (TMA, mbarriers full/empty). The
+// two warpgroups take turns to start their score products (named barriers
+// 1 and 2, as FlashAttention-3 orders its warpgroups), so one's softmax
+// tends to run under the other's products. Inside a warpgroup a tile's
+// products are retired before its softmax starts: starting the next tile's
+// scores ahead gained 3-4% on K5 and pushed K4 past the 168 registers a
+// thread of a 288-thread block can have (PERF.md, the K4/K5 bring-up).
 
-  uint32_t kf[4][4], vf[4][4];
-  stage(a, kK, b, h, k0, Qs, nullptr);
-  stage(a, kV, b, h, k0, Ds, nullptr);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    load_a(kf[kk], Qs, r0, 16 * kk, g, t);
-    load_a(vf[kk], Ds, r0, 16 * kk, g, t);
+constexpr int kBwdRows = 128;
+constexpr int kConsumers = 256;                  // two warpgroups
+constexpr int kBwdThreads = kConsumers + 32;     // + the producer warp
+constexpr int kStages = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTileB = hopper::kTileBytes;
+
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// Shared memory of K4, byte offsets from a 1024-aligned base: own K and V
+// (a tile per warpgroup), the Q and dO ring, the ring's log2-domain lse and
+// di (64 float32 each), then the barriers own, full[kStages], empty[kStages].
+struct DkvSmem {
+  static constexpr int kOwnK = 0;
+  static constexpr int kOwnV = kOwnK + 2 * kTileB;
+  static constexpr int kRingQ = kOwnV + 2 * kTileB;
+  static constexpr int kRingDO = kRingQ + kStages * kTileB;
+  static constexpr int kLse = kRingDO + kStages * kTileB;
+  static constexpr int kDi = kLse + kStages * kTile * 4;
+  static constexpr int kBar = kDi + kStages * kTile * 4;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8;
+};
+
+// Shared memory of K5: own Q and dO, the K and V ring, the barriers.
+struct DqSmem {
+  static constexpr int kOwnQ = 0;
+  static constexpr int kOwnDO = kOwnQ + 2 * kTileB;
+  static constexpr int kRingK = kOwnDO + 2 * kTileB;
+  static constexpr int kRingV = kRingK + kStages * kTileB;
+  static constexpr int kBar = kRingV + kStages * kTileB;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8;
+};
+
+// dynamic shared memory asked for: the layout plus room to align its base
+constexpr int kDkvSmem = DkvSmem::kBytes + 1024;
+constexpr int kDqSmem = DqSmem::kBytes + 1024;
+
+__device__ __forceinline__ uint32_t aligned_base(const uint8_t* raw) {
+  return (hopper::smem_addr(raw) + 1023) & ~1023u;
+}
+
+// Barriers at `bar`: own (1 arrival + the own tiles' bytes), full[s]
+// (full_count arrivals + a tile pair's bytes), empty[s] (one arrival per
+// consumer warp).
+__device__ __forceinline__ void init_barriers(uint32_t bar, int full_count) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bar + 8 * (1 + s), full_count);
+      hopper::mbar_init(bar + 8 * (1 + kStages + s), kConsumers / 32);
+    }
+    hopper::mbar_init_fence();
   }
+  __syncthreads();
+}
+
+// The two score products of a tile, x = X Bx^T and y = Y By^T (m64n64,
+// depth 64, one commit group): X and Y the warpgroup's own rows, Bx and By
+// the ring's tiles, all K-major in shared memory.
+__device__ __forceinline__ void score_pair(float (&x)[8][4], float (&y)[8][4],
+                                           uint32_t xt, uint32_t yt,
+                                           uint32_t bx, uint32_t by) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::wgmma_ss(x, hopper::desc_kmajor(xt, kk),
+                     hopper::desc_kmajor(bx, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::wgmma_ss(y, hopper::desc_kmajor(yt, kk),
+                     hopper::desc_kmajor(by, kk), kk);
+  hopper::wgmma_commit();
+}
+
+// K4: grid (128-row key blocks, H, B). Per q tile, warpgroup wg (key rows
+// k0 + 64 wg ..): S^T = K Q^T and dP^T = V dO^T (both operands K-major in
+// shared memory), P = exp2(S^T log2e - lse2) with lse2 = (m + log l) log2e
+// of the tile's q columns, dS^T = P (dP^T - di); then dV += P^T dO and
+// dK += dS^T Q with P^T, dS^T as register A operands and dO, Q read
+// MN-major. Key rows past N need no mask: each feeds only its own unstored
+// dK/dV row. Padded q rows (zeros from TMA, lse2 = di = 0) add nothing.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    bwd_dkv_wgmma(const __grid_constant__ Maps maps, const Args a) {
+  extern __shared__ uint8_t bwd_smem[];
+  const uint32_t base = aligned_base(bwd_smem);
+  uint8_t* gbase = bwd_smem + (base - hopper::smem_addr(bwd_smem));
+  float* lse = reinterpret_cast<float*>(gbase + DkvSmem::kLse);
+  float* dis = reinterpret_cast<float*>(gbase + DkvSmem::kDi);
+  const uint32_t own = base + DkvSmem::kBar, full = own + 8,
+                 empty = full + 8 * kStages;
+  const int k0 = blockIdx.x * kBwdRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_tiles = (a.N + kTile - 1) / kTile;
+  init_barriers(own, 32);
+
+  if (warp == kConsumers / 32) {
+    // producer: own K and V once, then per q tile its lse2 and di (all 32
+    // lanes, one arrival each) and its Q and dO tiles (lane 0)
+    if (lane == 0) {
+      hopper::tma_prefetch_map(&maps.q);
+      hopper::tma_prefetch_map(&maps.dout);
+      hopper::mbar_arrive_expect_tx(own, 4 * kTileB);
+      for (int w = 0; w < 2; ++w) {
+        hopper::tma_load_4d(base + DkvSmem::kOwnK + w * kTileB, &maps.k,
+                            own, 0, h, k0 + 64 * w, b);
+        hopper::tma_load_4d(base + DkvSmem::kOwnV + w * kTileB, &maps.v,
+                            own, 0, h, k0 + 64 * w, b);
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages, q0 = it * kTile;
+      float l2[2], d[2];               // read before the slot is free
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + lane + 32 * i;
+        l2[i] = d[i] = 0.f;
+        if (row < a.N) {
+          const int o = stat_off(a, b, h, row);
+          l2[i] = (a.m[o] + logf(fmaxf(a.l[o], 1e-30f))) * kLog2e;
+          d[i] = a.di[o];
+        }
+      }
+      hopper::mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        lse[s * kTile + lane + 32 * i] = l2[i];
+        dis[s * kTile + lane + 32 * i] = d[i];
+      }
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(full + 8 * s, 2 * kTileB);
+        hopper::tma_load_4d(base + DkvSmem::kRingQ + s * kTileB, &maps.q,
+                            full + 8 * s, 0, h, q0, b);
+        hopper::tma_load_4d(base + DkvSmem::kRingDO + s * kTileB,
+                            &maps.dout, full + 8 * s, 0, h, q0, b);
+      } else {
+        hopper::mbar_arrive(full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const uint32_t kt = base + DkvSmem::kOwnK + wg * kTileB;
+  const uint32_t vt = base + DkvSmem::kOwnV + wg * kTileB;
   float dk[8][4], dv[8][4];
   zero(dk);
   zero(dv);
-  for (int q0 = 0; q0 < a.N; q0 += kTile) {
-    __syncthreads();
-    stage(a, kQ, b, h, q0, Qs, Qt);
-    stage(a, kDO, b, h, q0, Ds, Dt);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const bool in = row < a.N;   // padded rows: Q = dO = 0 -> no effect
-      sm[threadIdx.x] = in ? a.m[stat_off(a, b, h, row)] : 0.f;
-      sl[threadIdx.x] = in ? fmaxf(a.l[stat_off(a, b, h, row)], 1e-30f) : 1.f;
-      sdi[threadIdx.x] = in ? a.di[stat_off(a, b, h, row)] : 0.f;
-    }
-    __syncthreads();
+  hopper::mbar_wait(own, 0);
+  if (wg == 1) hopper::named_bar_arrive(1, kConsumers);   // warpgroup 0 first
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t qt = base + DkvSmem::kRingQ + s * kTileB;
+    const uint32_t dt = base + DkvSmem::kRingDO + s * kTileB;
+    hopper::mbar_wait(full + 8 * s, (it / kStages) & 1);
     float p[8][4], ds[8][4];
-    zero(p);
-    zero(ds);
-    tile_mma(p, kf, Qs, g, t);            // S^T = K Q^T
-    tile_mma(ds, vf, Ds, g, t);           // dP^T = V dO^T
+    hopper::named_bar_sync(1 + wg, kConsumers);    // this warpgroup's turn
+    score_pair(p, ds, kt, vt, qt, dt);     // S^T = K Q^T, dP^T = V dO^T
+    if (wg == 0 || it + 1 < n_tiles)
+      hopper::named_bar_arrive(2 - wg, kConsumers);  // the other's turn
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(p);
+    hopper::fence_acc(ds);
+    const float* l2 = lse + s * kTile;
+    const float* d2 = dis + s * kTile;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j) {
+      const float2 lj = *reinterpret_cast<const float2*>(l2 + 8 * j + 2 * t);
+      const float2 dj = *reinterpret_cast<const float2*>(d2 + 8 * j + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qi = 8 * j + 2 * t + (e & 1);
-        p[j][e] = expf(p[j][e] - sm[qi]) / sl[qi];
-        ds[j][e] = p[j][e] * (ds[j][e] - sdi[qi]);
+        const float pe = hopper::exp2_approx(
+            fmaf(p[j][e], kLog2e, -((e & 1) ? lj.y : lj.x)));
+        ds[j][e] = pe * (ds[j][e] - ((e & 1) ? dj.y : dj.x));
+        p[j][e] = pe;
       }
-    uint32_t af[4][4];
-    acc_to_a(af, p);
-    tile_mma(dv, af, Dt, g, t);           // dV += P^T dO
-    acc_to_a(af, ds);
-    tile_mma(dk, af, Qt, g, t);           // dK += dS^T Q
+    }
+    uint32_t pa[4][4], da[4][4];
+    acc_to_a(pa, p);
+    acc_to_a(da, ds);
+    hopper::fence_acc(dv);
+    hopper::fence_acc(dk);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)                 // dV += P^T dO
+      hopper::wgmma_rs_mn(dv, pa[kk], hopper::desc_mnmajor(dt, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)                 // dK += dS^T Q
+      hopper::wgmma_rs_mn(dk, da[kk], hopper::desc_mnmajor(qt, kk));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(dv);
+    hopper::fence_acc(dk);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty + 8 * s);
   }
   const float one[2] = {1.f, 1.f};
-  store_rows(a, static_cast<bf16*>(a.dk), b, h, k0 + r0, dk, one, g, t);
-  store_rows(a, static_cast<bf16*>(a.dv), b, h, k0 + r0, dv, one, g, t);
+  const int row0 = k0 + 64 * wg + 16 * (warp & 3);
+  store_rows(a, static_cast<bf16*>(a.dk), b, h, row0, dk, one, g, t);
+  store_rows(a, static_cast<bf16*>(a.dv), b, h, row0, dv, one, g, t);
 }
 
-// K5: grid (q tiles, H, B); warp w owns q rows q0 + 16w ...
-__global__ void __launch_bounds__(kThreads) bwd_dq_mma(Args a) {
-  __shared__ __align__(16) bf16 Ks[kTile * kLd];
-  __shared__ __align__(16) bf16 Kt[kTile * kLd];
-  __shared__ __align__(16) bf16 Vs[kTile * kLd];
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+// K5: grid (128-row q blocks, H, B). Per key tile, warpgroup wg (q rows
+// q0 + 64 wg ..): S = Q K^T and dP = dO V^T (K-major), P = exp2(S log2e -
+// lse2) of the row, 0 for keys past N; dS = P (dP - di); dQ += dS K with
+// dS as the register A operand and K read MN-major.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    bwd_dq_wgmma(const __grid_constant__ Maps maps, const Args a) {
+  extern __shared__ uint8_t bwd_smem[];
+  const uint32_t base = aligned_base(bwd_smem);
+  const uint32_t own = base + DqSmem::kBar, full = own + 8,
+                 empty = full + 8 * kStages;
+  const int q0 = blockIdx.x * kBwdRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
+  const int n_tiles = (a.N + kTile - 1) / kTile;
+  init_barriers(own, 1);
 
-  uint32_t qf[4][4], df[4][4];
-  stage(a, kQ, b, h, q0, Ks, nullptr);
-  stage(a, kDO, b, h, q0, Vs, nullptr);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    load_a(qf[kk], Ks, r0, 16 * kk, g, t);
-    load_a(df[kk], Vs, r0, 16 * kk, g, t);
+  if (warp == kConsumers / 32) {
+    // producer (lane 0): own Q and dO once, then the K and V tiles
+    if (lane != 0) return;
+    hopper::tma_prefetch_map(&maps.k);
+    hopper::tma_prefetch_map(&maps.v);
+    hopper::mbar_arrive_expect_tx(own, 4 * kTileB);
+    for (int w = 0; w < 2; ++w) {
+      hopper::tma_load_4d(base + DqSmem::kOwnQ + w * kTileB, &maps.q, own,
+                          0, h, q0 + 64 * w, b);
+      hopper::tma_load_4d(base + DqSmem::kOwnDO + w * kTileB, &maps.dout,
+                          own, 0, h, q0 + 64 * w, b);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      hopper::mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+      hopper::mbar_arrive_expect_tx(full + 8 * s, 2 * kTileB);
+      hopper::tma_load_4d(base + DqSmem::kRingK + s * kTileB, &maps.k,
+                          full + 8 * s, 0, h, it * kTile, b);
+      hopper::tma_load_4d(base + DqSmem::kRingV + s * kTileB, &maps.v,
+                          full + 8 * s, 0, h, it * kTile, b);
+    }
+    return;
   }
-  float mr[2], lr[2], dr[2];
+
+  // consumers: the two rows (g, g + 8 of the warp's 16) of this thread
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 64 * wg + 16 * (warp & 3);
+  float l2[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + g + 8 * r;
-    const bool in = row < a.N;
-    mr[r] = in ? a.m[stat_off(a, b, h, row)] : 0.f;
-    lr[r] = in ? fmaxf(a.l[stat_off(a, b, h, row)], 1e-30f) : 1.f;
-    dr[r] = in ? a.di[stat_off(a, b, h, row)] : 0.f;
+    const int row = row0 + g + 8 * r;
+    l2[r] = dr[r] = 0.f;
+    if (row < a.N) {
+      const int o = stat_off(a, b, h, row);
+      l2[r] = (a.m[o] + logf(fmaxf(a.l[o], 1e-30f))) * kLog2e;
+      dr[r] = a.di[o];
+    }
   }
+  const uint32_t qt = base + DqSmem::kOwnQ + wg * kTileB;
+  const uint32_t dt = base + DqSmem::kOwnDO + wg * kTileB;
   float dq[8][4];
   zero(dq);
-  for (int k0 = 0; k0 < a.N; k0 += kTile) {
-    __syncthreads();
-    stage(a, kK, b, h, k0, Ks, Kt);
-    stage(a, kV, b, h, k0, Vs, nullptr);
-    __syncthreads();
+  hopper::mbar_wait(own, 0);
+  if (wg == 1) hopper::named_bar_arrive(1, kConsumers);   // warpgroup 0 first
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages, k0 = it * kTile;
+    const uint32_t kt = base + DqSmem::kRingK + s * kTileB;
+    const uint32_t vt = base + DqSmem::kRingV + s * kTileB;
+    hopper::mbar_wait(full + 8 * s, (it / kStages) & 1);
     float p[8][4], ds[8][4];
-    zero(p);
-    zero(ds);
-    tile_mma(p, qf, Ks, g, t);            // S = Q K^T
-    tile_mma(ds, df, Vs, g, t);           // dP = dO V^T
+    hopper::named_bar_sync(1 + wg, kConsumers);    // this warpgroup's turn
+    score_pair(p, ds, qt, dt, kt, vt);     // S = Q K^T, dP = dO V^T
+    if (wg == 0 || it + 1 < n_tiles)
+      hopper::named_bar_arrive(2 - wg, kConsumers);  // the other's turn
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(p);
+    hopper::fence_acc(ds);
+    const bool ragged = k0 + kTile > a.N;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float pv = k0 + 8 * j + 2 * t + (e & 1) < a.N
-                             ? expf(p[j][e] - mr[r]) / lr[r]
-                             : 0.f;
-        ds[j][e] = pv * (ds[j][e] - dr[r]);
+        float pe = hopper::exp2_approx(fmaf(p[j][e], kLog2e, -l2[e >> 1]));
+        if (ragged && k0 + 8 * j + 2 * t + (e & 1) >= a.N) pe = 0.f;
+        ds[j][e] = pe * (ds[j][e] - dr[e >> 1]);
       }
-    uint32_t af[4][4];
-    acc_to_a(af, ds);
-    tile_mma(dq, af, Kt, g, t);           // dQ += dS K
+    uint32_t da[4][4];
+    acc_to_a(da, ds);
+    hopper::fence_acc(dq);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)                 // dQ += dS K
+      hopper::wgmma_rs_mn(dq, da[kk], hopper::desc_mnmajor(kt, kk));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(dq);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty + 8 * s);
   }
   const float one[2] = {1.f, 1.f};
-  store_rows(a, static_cast<bf16*>(a.dq), b, h, q0 + r0, dq, one, g, t);
+  store_rows(a, static_cast<bf16*>(a.dq), b, h, row0, dq, one, g, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -598,6 +806,26 @@ int launch_f32(Kernel kernel, const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// K4 / K5 in bf16: the four tensor maps, the shared-memory limit raised to
+// what the kernel asks for, one block per 128 rows. Any refusal is returned.
+template <typename Kernel>
+int launch_wgmma(Kernel kernel, int smem, const Args& a, cudaStream_t s) {
+  Maps maps;
+  const void* ptr[4] = {a.q, a.k, a.v, a.dout};
+  CUtensorMap* map[4] = {&maps.q, &maps.k, &maps.v, &maps.dout};
+  for (int t = 0; t < 4; ++t) {
+    const int e = hopper::encode_bnhd_map(map[t], ptr[t], a.B, a.N, a.H,
+                                          a.s[t][0], a.s[t][1], a.s[t][2]);
+    if (e != 0) return e;
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3((a.N + kBwdRows - 1) / kBwdRows, a.H, a.B), kBwdThreads, smem,
+           s>>>(maps, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -642,10 +870,8 @@ int flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   a.dk = dk;
   a.dv = dv;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kBFloat16) {
-    bwd_dkv_mma<<<grid_of(a), kThreads, 0, s>>>(a);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == kBFloat16)
+    return launch_wgmma(bwd_dkv_wgmma, kDkvSmem, a, s);
   if (dtype == kFloat32) return launch_f32(bwd_dkv_f32<float>, a, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -666,10 +892,8 @@ int flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
   a.di = di;
   a.dq = dq;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kBFloat16) {
-    bwd_dq_mma<<<grid_of(a), kThreads, 0, s>>>(a);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == kBFloat16)
+    return launch_wgmma(bwd_dq_wgmma, kDqSmem, a, s);
   if (dtype == kFloat32) return launch_f32(bwd_dq_f32<float>, a, s);
   return (int)cudaErrorInvalidValue;
 }

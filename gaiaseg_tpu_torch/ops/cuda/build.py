@@ -1,12 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``_build/lib<name>_<digest>.so`` (the digest covers the source and the
-flags, so an edited source rebuilds). Nothing is built when a module is
-imported: a kernel's wrapper calls ``load`` at its first launch, and
-``build()`` builds every source at once, one nvcc process each, all
-started together. The build directory is inside the package and listed in
-``.gitignore``.
+``_build/lib<name>_<digest>.so`` (the digest covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds). Nothing is built when a module is imported: a kernel's wrapper
+calls ``load`` at its first launch, and ``build()`` builds every source at
+once, one nvcc process each, all started together. The build directory is
+inside the package and listed in ``.gitignore``.
 """
 from __future__ import annotations
 
@@ -53,9 +53,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    """Where ``csrc/<name>.cu`` builds to: the digest covers the source,
+    every shared header ``csrc/*.cuh`` (by name and content) and the
+    flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Dict]:

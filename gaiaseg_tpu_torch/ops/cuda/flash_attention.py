@@ -13,6 +13,10 @@ projection need no copy:
 - K4 ``flash_bwd_dkv`` (replaces ``_dkv_kernel``): dK and dV.
 - K5 ``flash_bwd_dq`` (replaces ``_dq_kernel``): dQ.
 
+In bf16, K4 and K5 read q, k, v and dO by TMA through 4-D tensor maps
+(``tensor_map_layout``), built inside the C entry points from the same
+strides.
+
 ``di = rowsum(dO * O)`` is a torch op, as the JAX package leaves it to XLA.
 The 128-lane padding of the TPU residuals is a Mosaic layout rule and is
 not kept. A wrapper takes its kernel's plain torch version (the
@@ -32,6 +36,7 @@ from . import build
 from .build import LAUNCHES
 
 HEAD_DIM = 64
+TILE_ROWS = 64      # rows of one staged tile (a TMA box in K4 and K5)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -83,11 +88,31 @@ def flash_bwd_dq_reference(q, k, v, do, m, l, di) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- #
+def tensor_map_layout(t: torch.Tensor):
+    """The 4-D TMA tensor map through which the bf16 backward kernels read
+    a strided ``[B, N, H, 64]`` view (``csrc/hopper.cuh``
+    ``encode_bnhd_map`` builds the same map from the element strides):
+    ``(dims, byte_strides, box)`` with dims ``(64, H, N, B)`` innermost
+    first, the byte strides of h, n and b, and the box ``(64, 1, 64, 1)``,
+    64 rows of one (b, h). Raises ``ValueError`` unless the head dim is
+    contiguous, the other strides are multiples of 16 bytes and the base is
+    16-byte aligned, which TMA needs (and the other kernels' 16-byte
+    loads)."""
+    b, n, h, d = t.shape
+    size = t.element_size()
+    strides = (t.stride(2) * size, t.stride(1) * size, t.stride(0) * size)
+    if t.stride(3) != 1 or any(s % 16 for s in strides) \
+            or t.data_ptr() % 16:
+        raise ValueError(f"unsupported strides {t.stride()} of a {t.dtype} "
+                         "tensor (head dim contiguous, the other strides "
+                         "multiples of 16 bytes, 16-byte aligned base)")
+    return (d, h, n, b), strides, (d, 1, TILE_ROWS, 1)
+
+
 def _check_inputs(*ts: torch.Tensor) -> None:
     """q, k, v (and dO): CUDA, one device, bf16 or float32, equal
-    ``[B, N, H, 64]`` shapes; head dim contiguous, the other strides
-    multiples of 8 elements and the base 16-byte aligned (the kernels read
-    16 bytes at a time)."""
+    ``[B, N, H, 64]`` shapes, strides as ``tensor_map_layout`` takes
+    them."""
     ref = ts[0]
     for t in ts:
         if t.device != ref.device or t.dtype != ref.dtype \
@@ -101,11 +126,7 @@ def _check_inputs(*ts: torch.Tensor) -> None:
         if t.dtype not in _DTYPES:
             raise ValueError(f"the kernels take bf16 or float32, not "
                              f"{t.dtype}")
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"unsupported strides {t.stride()} (head dim "
-                             "contiguous, other strides multiples of 8, "
-                             "16-byte aligned base)")
+        tensor_map_layout(t)
     b, n, h, _ = ref.shape
     if n < 1 or not 1 <= b <= 65535 or not 1 <= h <= 65535:
         raise ValueError(f"shape {tuple(ref.shape)} out of the kernels' range")
@@ -125,7 +146,11 @@ def _check_stats(ref: torch.Tensor, *stats: torch.Tensor) -> None:
 def _lib() -> ctypes.CDLL:
     """The built kernels with their C signatures declared (built at the
     first launch, never at import)."""
-    lib = build.load("flash_attention")
+    return bind(build.load("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a built ``flash_attention`` library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_fwd.argtypes = [i, p, p, p, p, p, p, i, i, i, p, p]
     lib.flash_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, p, p]

@@ -6,7 +6,8 @@ them.
   residuals of ``_flash_fwd`` at (1, 256, 2, 64) and the ragged
   (1, 200, 1, 64) with block 128, within 2e-4.
 - K4/K5: each backward plain version, fed the JAX forward's own
-  (q, k, v, o, m, l) and dO, against ``flash_attention_bwd``; and the
+  (q, k, v, o, m, l) and dO, against ``flash_attention_bwd`` at
+  (1, 200, 2, 64) and the ragged (1, 130, 3, 64), block 128; and the
   port's autograd path (``flash_attention`` on CPU tensors, whose wrappers
   take the plain versions) against ``jax.grad`` through the kernels, at
   (1, 200, 2, 64), within 5e-4.
@@ -85,11 +86,10 @@ def _jax_residuals(q, k, v, block):
     return res
 
 
-def test_bwd_references_match_pallas_bwd(interpret):
+def _check_bwd_references(shape, block, seed):
     """K4 and K5's plain versions fed the JAX forward's residuals against
     the interpret-mode ``_dkv_kernel`` and ``_dq_kernel``."""
-    shape, block = (1, 200, 2, 64), 128
-    q, k, v, do = _inputs(shape, 1)
+    q, k, v, do = _inputs(shape, seed)
     n = shape[1]
     qp, kp, vp, op, m, l = _jax_residuals(q, k, v, block)
     dop = jnp.pad(jnp.asarray(do.transpose(0, 2, 1, 3)),
@@ -109,6 +109,16 @@ def test_bwd_references_match_pallas_bwd(interpret):
     dq = fa.flash_bwd_dq_reference(*args)
     for got, want, name in ((dq, jdq, "dq"), (dk, jdk, "dk"), (dv, jdv, "dv")):
         _close(got.numpy(), bnhd(want).numpy(), 5e-4, name)
+
+
+def test_bwd_references_match_pallas_bwd(interpret):
+    _check_bwd_references((1, 200, 2, 64), 128, seed=1)
+
+
+def test_bwd_references_match_pallas_bwd_ragged_vit_width(interpret):
+    """At the ViT's head width a sequence of 130: the last 64-row tile of
+    the CUDA kernels holds 2 rows, the Pallas block of 128 holds 2."""
+    _check_bwd_references((1, 130, 3, 64), 128, seed=5)
 
 
 def test_autograd_matches_jax_grad_through_kernels(interpret):

@@ -1,0 +1,62 @@
+"""The Python around the port's kernel launches, on the CPU.
+
+- ``tensor_map_layout``: the 4-D TMA tensor map the bf16 flash backward
+  kernels (K4, K5) read a strided ``[B, N, H, 64]`` view through, against
+  values computed by hand for the q, k and v views that ``ElasticMHA`` takes
+  from the fused qkv projection (``qkv.unbind(2)``) at 6, 9 and 12 heads;
+  strides that TMA cannot take raise.
+- ``build.library_path``: the library name changes when a shared header
+  ``csrc/*.cuh`` changes, so an edited header rebuilds.
+"""
+import pytest
+import torch
+
+from gaiaseg_tpu_torch.ops.cuda import build
+from gaiaseg_tpu_torch.ops.cuda import flash_attention as fa
+
+
+@pytest.mark.parametrize("heads", [6, 9, 12])
+def test_tensor_map_layout_of_qkv_views(heads):
+    b, n = 2, 1025
+    qkv = torch.zeros(b, n, 3, heads, 64, dtype=torch.bfloat16)
+    token = 3 * heads * 64 * 2            # bytes from one token to the next
+    for t in qkv.unbind(2):
+        dims, strides, box = fa.tensor_map_layout(t)
+        assert dims == (64, heads, n, b)
+        assert strides == (128, token, n * token)
+        assert box == (64, 1, 64, 1)
+    # q after the scale is a contiguous [B, N, H, 64] tensor
+    dims, strides, _ = fa.tensor_map_layout(qkv[:, :, 0] * 0.125)
+    assert dims == (64, heads, n, b)
+    assert strides == (128, heads * 128, n * heads * 128)
+
+
+def test_tensor_map_layout_raises_on_strides_tma_cannot_take():
+    wide = torch.zeros(1, 8, 2, 72, dtype=torch.bfloat16)
+    assert fa.tensor_map_layout(wide[..., :64])[1] == (144, 288, 8 * 288)
+    padded = torch.zeros(1, 8, 2, 68, dtype=torch.float32)
+    fa.tensor_map_layout(padded[..., :64])       # 272 bytes: fine
+    odd = torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):     # 136 bytes
+        fa.tensor_map_layout(odd[..., :64])
+    flat = torch.zeros(1 * 8 * 2 * 64 + 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):     # base 8 bytes past an aligned one
+        fa.tensor_map_layout(flat[4:].view(1, 8, 2, 64))
+    with pytest.raises(ValueError):     # head dim not contiguous
+        fa.tensor_map_layout(torch.zeros(1, 8, 64, 2).transpose(2, 3))
+
+
+def test_library_path_covers_shared_headers(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    header.write_text("// two\n")
+    second = build.library_path("k")
+    assert second != first and second.parent == build.BUILD_DIR
+    (tmp_path / "other.cuh").write_text("")
+    assert build.library_path("k") not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert build.library_path("k").name.startswith("libk_")
