@@ -18,25 +18,42 @@
 //   dV = P^T dO,  dS = P * (dO V^T - di),  dK = dS^T Q,  dQ = dS K,
 // with di = rowsum(dO * O) computed by the caller.
 //
-// Forward (K3, bf16: fwd_mma). A block owns 64 q rows and loops over 64-row
-// key tiles staged in shared memory, mma.sync m16n8k16 (bf16 operands,
-// float32 accumulators), four warps of 16 rows. The S fragments, rounded to
-// bf16, are the A fragments of P V: scores never leave registers. Keys past
-// N are masked (-1e30 scores, as the TPU kernel does).
+// All three bf16 kernels share one shape (fwd_wgmma, bwd_dkv_wgmma,
+// bwd_dq_wgmma). A block owns 128 rows of one (b, h) at a time (q rows in K3
+// and K5, key rows in K4), 64 for each of two consumer warpgroups, loaded
+// once by TMA; one producer warp streams the other side in 64-row tiles
+// through a ring (TMA into 128-byte swizzled tiles, mbarriers full/empty),
+// so copies overlap the products. Every product is a wgmma with float32
+// accumulators (m64n64k16; K3's scores m64n128k16, two key tiles a stage):
+// the score products read both operands from shared memory, K-major; P (K3),
+// P^T and dS^T (K4) and dS (K5) stay in registers and, rounded to bf16, are
+// the A operand of the last products, whose B tiles (V in K3, dO and Q in
+// K4, K in K5) are read MN-major by the descriptor's transpose bit, so no
+// tile is transposed by hand. Each block writes only its own rows: no
+// atomics, bit-reproducible.
 //
-// Backward (K4, K5, bf16: bwd_dkv_wgmma, bwd_dq_wgmma). A block owns 128
-// rows of one (b, h) (key rows in K4, q rows in K5), 64 for each of two
-// consumer warpgroups, loaded once by TMA; one producer warp streams the
-// other side in 64-row tiles through a 3-stage ring (TMA into 128-byte
-// swizzled tiles, mbarriers), so copies overlap the products. Every product
-// is a wgmma m64n64k16 with float32 accumulators: the first two of a tile
-// read both operands from shared memory, K-major; P^T, dS^T (K4) and dS (K5)
-// stay in registers and, rounded to bf16, are the A operand of the last
-// products, whose B tiles (dO and Q in K4, K in K5) are read MN-major by the
-// descriptor's transpose bit, so no tile is transposed by hand. The softmax
-// is recomputed as exp2(s log2e - lse2), lse2 = (m + log max(l, 1e-30))
-// log2e once per row: no division or expf in the inner loop. Each block
-// writes only its own rows: no atomics, bit-reproducible.
+// Forward (K3). The grid is persistent: one block an SM, each taking work
+// items (128 q rows of one (b, h)) in turn, so that a block's start, its
+// wait for Q and its stores are not paid once per 128 rows: the producer
+// runs on into the next item (a second Q buffer; the ring never drains)
+// while the consumers finish this one. A stage of the ring is 128 keys (two
+// tiles of K, two of V), so the loop's barriers, waits and turns come once
+// per 128 keys. Online softmax in the log2 domain: per stage the row max m
+// (natural units, as stored) and P = exp2(s log2e - m log2e) on the SFU, the
+// row sum l and the output rescaled by exp2((m_old - m) log2e); one division
+// by max(l, 1e-30) at the end. Keys past N are masked (-1e30) in the ragged
+// last stage only. The next stage's score product is issued together with
+// this stage's P V, and the softmax of the new scores runs under the P V:
+// an item's first score product and last P V are peeled so that the loop
+// issues a fixed sequence of commit groups, and the score accumulator is
+// fresh in every iteration. A warp that issues wgmmas is held for about as
+// long as they run, and the softmax's float32 arithmetic (not its
+// exponentials) adds to the products' time instead of hiding under them
+// (PERF.md, the K3 bring-up).
+//
+// Backward (K4, K5). The softmax is recomputed as exp2(s log2e - lse2),
+// lse2 = (m + log max(l, 1e-30)) log2e once per row: no division or expf in
+// the inner loop.
 //
 // For float32 inputs the same 64-row tiling runs with float32 FMA on the
 // CUDA cores, one thread a row; that path exists for float32 checks.
@@ -44,8 +61,9 @@
 // What bounds it on the H100. At the ViT shape (B 8, H 12, N 1024) K3 does
 // 4*B*H*N^2*64 = 25.8 GFLOP (26 us at 989 TFLOP/s bf16) and moves ~51 MB
 // (15 us at 3.35 TB/s); K4 8*B*H*N^2*64 (52 us), K5 6*B*H*N^2*64 (39 us). All
-// three are bound by the tensor cores. K3 is still the first, simple
-// version (mma.sync, synchronous staging); its redesign is later work.
+// three are bound by the tensor cores; at head dim 64 the forward's 32
+// exponentials a thread and tile cost the SFUs about what its two products
+// cost the tensor cores, which is why the two warpgroups take turns.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,10 +75,7 @@
 namespace {
 
 constexpr int kD = 64;          // head dim
-constexpr int kTile = 64;       // rows of a q tile and of a key tile
-constexpr int kWarps = 4;       // tensor-core kernels: warp w owns 16 rows
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLd = kD + 8;     // bf16 smem row stride: conflict-free frags
+constexpr int kTile = 64;       // rows of a streamed tile (a TMA box)
 constexpr int kLdF = kD + 1;    // float smem row stride: conflict-free rows
 constexpr float kNegInf = -1e30f;
 
@@ -101,60 +116,18 @@ __device__ __forceinline__ int stat_off(const Args& a, int b, int h, int n) {
 // ---------------------------------------------------------------------------
 // bf16 tensor-core path
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 x 16) of a row-major [row][k] smem tile; g = lane / 4,
-// t = lane % 4
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* X,
-                                       int r0, int k0, int g, int t) {
-  a[0] = ld32(X + (r0 + g) * kLd + k0 + 2 * t);
-  a[1] = ld32(X + (r0 + g + 8) * kLd + k0 + 2 * t);
-  a[2] = ld32(X + (r0 + g) * kLd + k0 + 2 * t + 8);
-  a[3] = ld32(X + (r0 + g + 8) * kLd + k0 + 2 * t + 8);
-}
-
-// The B fragment (16 x 8) of a product X * Y, from Yt = Y transposed, held
-// row-major [n][k] in smem: columns n0.., depth k0..
-__device__ __forceinline__ void mma_b(float (&c)[4], const uint32_t (&a)[4],
-                                      const bf16* Yt, int n0, int k0, int g,
-                                      int t) {
-  const bf16* p = Yt + (n0 + g) * kLd + k0 + 2 * t;
-  mma(c, a, ld32(p), ld32(p + 8));
-}
-
-// The 64 x 64 tile product C[16 rows of this warp][64] += A[16][64] * Y,
-// A as four k-step fragments, Y given transposed.
-__device__ __forceinline__ void tile_mma(float (&c)[8][4],
-                                         const uint32_t (&a)[4][4],
-                                         const bf16* Yt, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_b(c[j], a[kk], Yt, 8 * j, 16 * kk, g, t);
-}
-
 // The accumulator fragments c (16 x 64 float32) rounded to bf16 as the A
 // fragments of the next product (depth = c's 64 columns).
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
-                                         const float (&c)[8][4]) {
+template <int kSteps>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[kSteps][4],
+                                         const float (&c)[2 * kSteps][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kSteps; ++kk) {
     a[kk][0] = pack(c[2 * kk][0], c[2 * kk][1]);
     a[kk][1] = pack(c[2 * kk][2], c[2 * kk][3]);
     a[kk][2] = pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
@@ -167,30 +140,6 @@ __device__ __forceinline__ void zero(float (&c)[8][4]) {
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-}
-
-// Stage rows [r0, r0 + 64) of one (b, h) of tensor t into smem, row-major
-// (S) and/or transposed (St, [d][row]); rows past N read as zeros. 16-byte
-// loads: 8 chunks a row, 128 threads.
-__device__ __forceinline__ void stage(const Args& a, int t, int b, int h,
-                                      int r0, bf16* S, bf16* St) {
-  const bf16* base = static_cast<const bf16*>(
-      t == kQ ? a.q : t == kK ? a.k : t == kV ? a.v : a.dout);
-#pragma unroll
-  for (int i = 0; i < kTile * kD / 8 / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int row = c >> 3, col = (c & 7) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + row < a.N)
-      val = *reinterpret_cast<const uint4*>(base +
-                                            in_off(a, t, b, r0 + row, h) + col);
-    if (S) *reinterpret_cast<uint4*>(S + row * kLd + col) = val;
-    if (St) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int x = 0; x < 8; ++x) St[(col + x) * kLd + row] = e[x];
-    }
-  }
 }
 
 // Warp-quad (the 4 lanes sharing a fragment row) reductions
@@ -224,92 +173,27 @@ __device__ __forceinline__ void store_rows(const Args& a, bf16* out, int b,
   }
 }
 
-// K3: grid (q tiles, H, B)
-__global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
-  __shared__ __align__(16) bf16 Ks[kTile * kLd];
-  __shared__ __align__(16) bf16 Vt[kTile * kLd];
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
-
-  uint32_t qf[4][4];
-  stage(a, kQ, b, h, q0, Ks, nullptr);     // Q through the K buffer
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a(qf[kk], Ks, r0, 16 * kk, g, t);
-
-  float o[8][4], mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
-  zero(o);
-  for (int k0 = 0; k0 < a.N; k0 += kTile) {
-    __syncthreads();                      // the last tile is consumed
-    stage(a, kK, b, h, k0, Ks, nullptr);
-    stage(a, kV, b, h, k0, nullptr, Vt);
-    __syncthreads();
-    float s[8][4];
-    zero(s);
-    tile_mma(s, qf, Ks, g, t);            // S = Q K^T
-    float mx[2] = {mrow[0], mrow[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (k0 + 8 * j + 2 * t + (e & 1) >= a.N) s[j][e] = kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      alpha[r] = expf(mrow[r] - mx[r]);
-      mrow[r] = mx[r];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - mx[e >> 1]);
-        sum[e >> 1] += s[j][e];
-        o[j][e] *= alpha[e >> 1];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) lrow[r] = alpha[r] * lrow[r] + quad_sum(sum[r]);
-    uint32_t pf[4][4];
-    acc_to_a(pf, s);                      // P rounded to v's dtype
-    tile_mma(o, pf, Vt, g, t);            // O += P V
-  }
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(lrow[r], 1e-30f);
-  store_rows(a, static_cast<bf16*>(a.o), b, h, q0 + r0, o, inv, g, t);
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + r0 + g + 8 * r;
-      if (row < a.N) {
-        a.m[stat_off(a, b, h, row)] = mrow[r];
-        a.l[stat_off(a, b, h, row)] = lrow[r];
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 backward (K4, K5) on wgmma, fed by TMA (helpers in hopper.cuh)
+// bf16 kernels (K3, K4, K5) on wgmma, fed by TMA (helpers in hopper.cuh)
 //
 // A block owns 128 rows of one (b, h), 64 for each of its two consumer
 // warpgroups, and loads them once; one producer warp streams the other side
-// through a ring of kStages 64-row tiles (TMA, mbarriers full/empty). The
-// two warpgroups take turns to start their score products (named barriers
-// 1 and 2, as FlashAttention-3 orders its warpgroups), so one's softmax
-// tends to run under the other's products. Inside a warpgroup a tile's
-// products are retired before its softmax starts: starting the next tile's
-// scores ahead gained 3-4% on K5 and pushed K4 past the 168 registers a
-// thread of a 288-thread block can have (PERF.md, the K4/K5 bring-up).
+// through a ring of 64-row tiles (TMA, mbarriers full/empty). The two
+// warpgroups take turns to start their products (named barriers 1 and 2, as
+// FlashAttention-3 orders its warpgroups; K3 passes the turn on after its
+// softmax, and on across its work items). In K4 and K5 a tile's products are
+// retired before its softmax starts: starting the next tile's scores ahead
+// gained 3-4% on K5 and pushed K4 past the 168 registers a thread of a
+// 288-thread block can have (PERF.md, the K4/K5 bring-up). K3 carries one
+// score and one output accumulator and does start the next tile's scores
+// ahead.
 
-constexpr int kBwdRows = 128;
+constexpr int kBlockRows = 128;
 constexpr int kConsumers = 256;                  // two warpgroups
-constexpr int kBwdThreads = kConsumers + 32;     // + the producer warp
-constexpr int kStages = 3;
+constexpr int kBlockThreads = kConsumers + 32;   // + the producer warp
+constexpr int kStages = 3;      // ring of K4 and K5: a tile pair per stage
+constexpr int kFwdStages = 4;   // ring of K3: it holds V a tile longer than K
+constexpr int kFwdKeys = 128;   // keys of a K3 stage: two tiles of K, two of V
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTileB = hopper::kTileBytes;
 
@@ -341,7 +225,21 @@ struct DqSmem {
   static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8;
 };
 
+// Shared memory of K3: two buffers of own Q (a tile per warpgroup each, so
+// that the next work item's Q arrives while this one computes), the K and V
+// ring (two tiles each a stage, the second right behind the first, so that
+// the pair is one 128-row operand), then the barriers q_full[2], q_empty[2],
+// full[kFwdStages], empty[kFwdStages].
+struct FwdSmem {
+  static constexpr int kOwnQ = 0;
+  static constexpr int kRingK = kOwnQ + 4 * kTileB;
+  static constexpr int kRingV = kRingK + kFwdStages * 2 * kTileB;
+  static constexpr int kBar = kRingV + kFwdStages * 2 * kTileB;
+  static constexpr int kBytes = kBar + (4 + 2 * kFwdStages) * 8;
+};
+
 // dynamic shared memory asked for: the layout plus room to align its base
+constexpr int kFwdSmem = FwdSmem::kBytes + 1024;
 constexpr int kDkvSmem = DkvSmem::kBytes + 1024;
 constexpr int kDqSmem = DqSmem::kBytes + 1024;
 
@@ -349,9 +247,9 @@ __device__ __forceinline__ uint32_t aligned_base(const uint8_t* raw) {
   return (hopper::smem_addr(raw) + 1023) & ~1023u;
 }
 
-// Barriers at `bar`: own (1 arrival + the own tiles' bytes), full[s]
-// (full_count arrivals + a tile pair's bytes), empty[s] (one arrival per
-// consumer warp).
+// Barriers of K4 and K5 at `bar`: own (1 arrival + the own tiles' bytes),
+// full[s] (full_count arrivals + a tile pair's bytes), empty[s] (one arrival
+// per consumer warp), s < kStages.
 __device__ __forceinline__ void init_barriers(uint32_t bar, int full_count) {
   if (threadIdx.x == 0) {
     hopper::mbar_init(bar, 1);
@@ -382,6 +280,247 @@ __device__ __forceinline__ void score_pair(float (&x)[8][4], float (&y)[8][4],
   hopper::wgmma_commit();
 }
 
+// One stage's step of the online softmax on a score fragment s (the
+// stage's 128 keys wide), in place: keys at or past n_valid are masked, the running row
+// max mrow (natural units) is raised, s becomes P = exp2((s - mrow) log2e)
+// in float32, and this thread's share of the row sum is added into lsum
+// after scaling it by alpha = exp2((old max - new max) log2e), which the
+// caller applies to the output rows. kFirst: no old max yet, alpha = 1.
+template <bool kFirst>
+__device__ __forceinline__ void softmax_tile(float (&s)[kFwdKeys / 8][4],
+                                             float (&mrow)[2],
+                                             float (&lsum)[2],
+                                             float (&alpha)[2], int n_valid,
+                                             int t) {
+  constexpr int kGroups = kFwdKeys / 8;
+  if (n_valid < kFwdKeys) {
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t + (e & 1) >= n_valid) s[j][e] = kNegInf;
+  }
+  float mx[2] = {s[0][0], s[0][2]};
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  float ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    if (kFirst) {
+      alpha[r] = 1.f;
+    } else {
+      mx[r] = fmaxf(mx[r], mrow[r]);
+      alpha[r] = hopper::exp2_approx((mrow[r] - mx[r]) * kLog2e);
+    }
+    mrow[r] = mx[r];
+    ms[r] = mx[r] * kLog2e;
+  }
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = hopper::exp2_approx(fmaf(s[j][e], kLog2e, -ms[e >> 1]));
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    lsum[r] = kFirst ? sum[r] : fmaf(lsum[r], alpha[r], sum[r]);
+}
+
+// s = X B^T (m64n128, depth 64, one commit group), X the warpgroup's own
+// rows and B a stage's 128 key rows, both K-major in shared memory. The
+// caller has fenced.
+__device__ __forceinline__ void score(float (&s)[16][4], uint32_t xt,
+                                      uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::wgmma_ss_n128(s, hopper::desc_kmajor(xt, kk),
+                          hopper::desc_kmajor(bt, kk), kk);
+  hopper::wgmma_commit();
+}
+
+// o += P V (one commit group): P as register A operands, a stage's 128 rows
+// of V read MN-major (its key rows are the depth). The caller has fenced.
+__device__ __forceinline__ void add_pv(float (&o)[8][4],
+                                       const uint32_t (&pa)[8][4],
+                                       uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    hopper::wgmma_rs_mn(o, pa[kk], hopper::desc_mnmajor(vt, kk));
+  hopper::wgmma_commit();
+}
+
+// K3: a persistent grid, one block an SM at most; block x takes the work
+// items x, x + gridDim.x, .. of the B * H * ceil(N / 128) blocks of 128 q
+// rows (q block fastest, so blocks that run together share K and V in L2).
+// The producer runs ahead across items: the next item's Q and first stages
+// arrive while this item computes and stores. Per item, warpgroup wg owns q
+// rows q0 + 64 wg .. Stage 0 (keys 0..127): S = Q K_0^T, softmax. Stage it >
+// 0: S = Q K_it^T and O += P V_(it-1) are issued together; the softmax of S
+// (mask, max, exp2, sums) runs while P V is in flight; then O is rescaled and
+// P rounded to bf16 for the next turn. After the last stage: O += P V_last,
+// O / max(l, 1e-30). q rows past N are zeros from TMA and are not stored.
+struct FwdItem {
+  int q0, h, b;
+};
+
+__device__ __forceinline__ FwdItem fwd_item(const Args& a, int item) {
+  const int q_blocks = (a.N + kBlockRows - 1) / kBlockRows;
+  FwdItem w;
+  w.q0 = (item % q_blocks) * kBlockRows;
+  w.h = (item / q_blocks) % a.H;
+  w.b = item / (q_blocks * a.H);
+  return w;
+}
+
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    fwd_wgmma(const __grid_constant__ Maps maps, const Args a, int n_items) {
+  extern __shared__ uint8_t dyn_smem[];
+  const uint32_t base = aligned_base(dyn_smem);
+  const uint32_t q_full = base + FwdSmem::kBar, q_empty = q_full + 16,
+                 full = q_empty + 16, empty = full + 8 * kFwdStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_tiles = (a.N + kFwdKeys - 1) / kFwdKeys;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(q_full + 8 * i, 1);
+      hopper::mbar_init(q_empty + 8 * i, kConsumers / 32);
+    }
+    for (int s = 0; s < kFwdStages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, kConsumers / 32);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // producer (lane 0): per item its Q into the free buffer, then its K and
+    // V stages; n counts the stages loaded so far, over all items
+    if (lane != 0) return;
+    hopper::tma_prefetch_map(&maps.q);
+    hopper::tma_prefetch_map(&maps.k);
+    hopper::tma_prefetch_map(&maps.v);
+    int n = 0;
+    for (int j = 0, item = blockIdx.x; item < n_items;
+         ++j, item += gridDim.x) {
+      const FwdItem w = fwd_item(a, item);
+      const int buf = j & 1;
+      hopper::mbar_wait(q_empty + 8 * buf, ((j >> 1) & 1) ^ 1);
+      hopper::mbar_arrive_expect_tx(q_full + 8 * buf, 2 * kTileB);
+      for (int i = 0; i < 2; ++i)
+        hopper::tma_load_4d(base + FwdSmem::kOwnQ + (2 * buf + i) * kTileB,
+                            &maps.q, q_full + 8 * buf, 0, w.h,
+                            w.q0 + 64 * i, w.b);
+      for (int it = 0; it < n_tiles; ++it, ++n) {
+        const int s = n % kFwdStages;
+        hopper::mbar_wait(empty + 8 * s, ((n / kFwdStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(full + 8 * s, 4 * kTileB);
+        for (int i = 0; i < 2; ++i) {
+          hopper::tma_load_4d(base + FwdSmem::kRingK + (2 * s + i) * kTileB,
+                              &maps.k, full + 8 * s, 0, w.h,
+                              it * kFwdKeys + i * kTile, w.b);
+          hopper::tma_load_4d(base + FwdSmem::kRingV + (2 * s + i) * kTileB,
+                              &maps.v, full + 8 * s, 0, w.h,
+                              it * kFwdKeys + i * kTile, w.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: the two rows (g, g + 8 of the warp's 16) of this thread
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const uint32_t ring_k = base + FwdSmem::kRingK;
+  const uint32_t ring_v = base + FwdSmem::kRingV;
+  const int last = n_tiles - 1;
+  int n = 0;                      // stages consumed before this item
+  if (wg == 1) hopper::named_bar_arrive(1, kConsumers);   // warpgroup 0 first
+  for (int j = 0, item = blockIdx.x; item < n_items;
+       ++j, item += gridDim.x, n += n_tiles) {
+    const int buf = j & 1;
+    const bool more = item + gridDim.x < n_items;
+    const uint32_t qt = base + FwdSmem::kOwnQ + (2 * buf + wg) * kTileB;
+    float o[8][4], mrow[2], lsum[2], alpha[2];
+    uint32_t pa[8][4];
+    zero(o);
+    hopper::mbar_wait(q_full + 8 * buf, (j >> 1) & 1);
+    {
+      const int st = n % kFwdStages;
+      hopper::mbar_wait(full + 8 * st, (n / kFwdStages) & 1);
+      float s[16][4];
+      hopper::named_bar_sync(1 + wg, kConsumers);   // this warpgroup's turn
+      hopper::wgmma_fence();
+      score(s, qt, ring_k + st * 2 * kTileB);
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(s);
+      softmax_tile<true>(s, mrow, lsum, alpha, last == 0 ? a.N : kFwdKeys,
+                         t);
+      if (wg == 0 || last > 0 || more)
+        hopper::named_bar_arrive(2 - wg, kConsumers);  // the other's turn
+      acc_to_a(pa, s);
+    }
+    for (int it = 1; it <= last; ++it) {
+      const int st = (n + it) % kFwdStages, sp = (n + it - 1) % kFwdStages;
+      hopper::mbar_wait(full + 8 * st, ((n + it) / kFwdStages) & 1);
+      float s[16][4];
+      hopper::named_bar_sync(1 + wg, kConsumers);
+      hopper::fence_acc(o);
+      hopper::wgmma_fence();
+      score(s, qt, ring_k + st * 2 * kTileB);           // S = Q K_it^T
+      add_pv(o, pa, ring_v + sp * 2 * kTileB);          // O += P V_(it-1)
+      hopper::wgmma_wait<1>();                      // S is there
+      hopper::fence_acc(s);
+      softmax_tile<false>(s, mrow, lsum, alpha,
+                          it == last ? a.N - it * kFwdKeys : kFwdKeys, t);
+      if (wg == 0 || it < last || more)
+        hopper::named_bar_arrive(2 - wg, kConsumers);
+      hopper::wgmma_wait<0>();                      // P V is done
+      hopper::fence_acc(o);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty + 8 * sp);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[jj][e] *= alpha[e >> 1];
+      acc_to_a(pa, s);
+    }
+    const int sl = (n + last) % kFwdStages;
+    hopper::fence_acc(o);
+    hopper::wgmma_fence();
+    add_pv(o, pa, ring_v + sl * 2 * kTileB);
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(o);
+    __syncwarp();
+    if (lane == 0) {              // every product of the item has completed
+      hopper::mbar_arrive(q_empty + 8 * buf);
+      hopper::mbar_arrive(empty + 8 * sl);
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lsum[r] = quad_sum(lsum[r]);
+      inv[r] = 1.f / fmaxf(lsum[r], 1e-30f);
+    }
+    const FwdItem w = fwd_item(a, item);
+    const int row0 = w.q0 + 64 * wg + 16 * (warp & 3);
+    store_rows(a, static_cast<bf16*>(a.o), w.b, w.h, row0, o, inv, g, t);
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        if (row < a.N) {
+          a.m[stat_off(a, w.b, w.h, row)] = mrow[r];
+          a.l[stat_off(a, w.b, w.h, row)] = lsum[r];
+        }
+      }
+    }
+  }
+}
+
 // K4: grid (128-row key blocks, H, B). Per q tile, warpgroup wg (key rows
 // k0 + 64 wg ..): S^T = K Q^T and dP^T = V dO^T (both operands K-major in
 // shared memory), P = exp2(S^T log2e - lse2) with lse2 = (m + log l) log2e
@@ -389,16 +528,16 @@ __device__ __forceinline__ void score_pair(float (&x)[8][4], float (&y)[8][4],
 // dK += dS^T Q with P^T, dS^T as register A operands and dO, Q read
 // MN-major. Key rows past N need no mask: each feeds only its own unstored
 // dK/dV row. Padded q rows (zeros from TMA, lse2 = di = 0) add nothing.
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
     bwd_dkv_wgmma(const __grid_constant__ Maps maps, const Args a) {
-  extern __shared__ uint8_t bwd_smem[];
-  const uint32_t base = aligned_base(bwd_smem);
-  uint8_t* gbase = bwd_smem + (base - hopper::smem_addr(bwd_smem));
+  extern __shared__ uint8_t dyn_smem[];
+  const uint32_t base = aligned_base(dyn_smem);
+  uint8_t* gbase = dyn_smem + (base - hopper::smem_addr(dyn_smem));
   float* lse = reinterpret_cast<float*>(gbase + DkvSmem::kLse);
   float* dis = reinterpret_cast<float*>(gbase + DkvSmem::kDi);
   const uint32_t own = base + DkvSmem::kBar, full = own + 8,
                  empty = full + 8 * kStages;
-  const int k0 = blockIdx.x * kBwdRows, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_tiles = (a.N + kTile - 1) / kTile;
   init_barriers(own, 32);
@@ -514,13 +653,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // q0 + 64 wg ..): S = Q K^T and dP = dO V^T (K-major), P = exp2(S log2e -
 // lse2) of the row, 0 for keys past N; dS = P (dP - di); dQ += dS K with
 // dS as the register A operand and K read MN-major.
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
     bwd_dq_wgmma(const __grid_constant__ Maps maps, const Args a) {
-  extern __shared__ uint8_t bwd_smem[];
-  const uint32_t base = aligned_base(bwd_smem);
+  extern __shared__ uint8_t dyn_smem[];
+  const uint32_t base = aligned_base(dyn_smem);
   const uint32_t own = base + DqSmem::kBar, full = own + 8,
                  empty = full + 8 * kStages;
-  const int q0 = blockIdx.x * kBwdRows, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_tiles = (a.N + kTile - 1) / kTile;
   init_barriers(own, 1);
@@ -806,23 +945,52 @@ int launch_f32(Kernel kernel, const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// K4 / K5 in bf16: the four tensor maps, the shared-memory limit raised to
-// what the kernel asks for, one block per 128 rows. Any refusal is returned.
-template <typename Kernel>
-int launch_wgmma(Kernel kernel, int smem, const Args& a, cudaStream_t s) {
-  Maps maps;
+// The tensor maps of the first n_maps of q, k, v, dO. Returns a cudaError_t.
+int encode_maps(Maps& maps, const Args& a, int n_maps) {
   const void* ptr[4] = {a.q, a.k, a.v, a.dout};
   CUtensorMap* map[4] = {&maps.q, &maps.k, &maps.v, &maps.dout};
-  for (int t = 0; t < 4; ++t) {
+  for (int t = 0; t < n_maps; ++t) {
     const int e = hopper::encode_bnhd_map(map[t], ptr[t], a.B, a.N, a.H,
                                           a.s[t][0], a.s[t][1], a.s[t][2]);
     if (e != 0) return e;
   }
-  cudaError_t e = cudaFuncSetAttribute(
+  return 0;
+}
+
+// K4 / K5 in bf16: the four tensor maps, the shared-memory limit raised to
+// what the kernel asks for, one block per 128 rows. Any refusal is returned.
+template <typename Kernel>
+int launch_wgmma(Kernel kernel, int smem, const Args& a, cudaStream_t s) {
+  Maps maps = {};
+  const int e = encode_maps(maps, a, 4);
+  if (e != 0) return e;
+  cudaError_t ce = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((a.N + kBwdRows - 1) / kBwdRows, a.H, a.B), kBwdThreads, smem,
-           s>>>(maps, a);
+  if (ce != cudaSuccess) return (int)ce;
+  kernel<<<dim3((a.N + kBlockRows - 1) / kBlockRows, a.H, a.B),
+           kBlockThreads, smem, s>>>(maps, a);
+  return (int)cudaGetLastError();
+}
+
+// K3 in bf16: maps of q, k, v; one block an SM of the current device, or
+// fewer when there are fewer work items.
+int launch_fwd(const Args& a, cudaStream_t s) {
+  Maps maps = {};
+  const int e = encode_maps(maps, a, 3);
+  if (e != 0) return e;
+  int device = 0, sms = 0;
+  cudaError_t ce = cudaGetDevice(&device);
+  if (ce == cudaSuccess)
+    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (ce == cudaSuccess)
+    ce = cudaFuncSetAttribute(
+        fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (ce != cudaSuccess) return (int)ce;
+  const long long items =
+      (long long)((a.N + kBlockRows - 1) / kBlockRows) * a.H * a.B;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int blocks = items < sms ? (int)items : sms;
+  fwd_wgmma<<<blocks, kBlockThreads, kFwdSmem, s>>>(maps, a, (int)items);
   return (int)cudaGetLastError();
 }
 
@@ -844,12 +1012,9 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
   a.m = m;
   a.l = l;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kBFloat16)
-    fwd_mma<<<grid_of(a), kThreads, 0, s>>>(a);
-  else if (dtype == kFloat32)
-    fwd_f32<float><<<grid_of(a), kTile, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
+  if (dtype == kBFloat16) return launch_fwd(a, s);
+  if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
+  fwd_f32<float><<<grid_of(a), kTile, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 

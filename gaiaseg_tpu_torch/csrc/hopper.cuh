@@ -10,7 +10,7 @@
 // 1024-byte boundary, so the swizzle is a function of the address alone and
 // a wgmma descriptor may start anywhere inside a tile.
 //
-// wgmma operands (m64n64k16, bf16 in, float32 accumulators):
+// wgmma operands (m64n64k16 and m64n128k16, bf16 in, float32 accumulators):
 // - K-major: the reduction index runs along a tile row (Q or K rows against
 //   their head dim). k-step kk starts 32 * kk bytes into the tile; 8-row
 //   groups lie 1024 bytes apart (SBO); LBO is unused.
@@ -161,9 +161,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving accesses of an accumulator across the
 // asynchronous wgmma that owns it (from its launch to its wait).
-__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
+template <int kGroups>
+__device__ __forceinline__ void fence_acc(float (&d)[kGroups][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kGroups; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
@@ -172,15 +173,22 @@ __device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
-#define HOPPER_D32_OPS(d)                                                  \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),              \
-      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),          \
-      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),          \
-      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),          \
-      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),          \
-      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),          \
-      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),          \
-      "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define HOPPER_D64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define HOPPER_ROW_OPS(d, j) \
+  "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define HOPPER_D32_OPS(d)                                                 \
+  HOPPER_ROW_OPS(d, 0), HOPPER_ROW_OPS(d, 1), HOPPER_ROW_OPS(d, 2),        \
+      HOPPER_ROW_OPS(d, 3), HOPPER_ROW_OPS(d, 4), HOPPER_ROW_OPS(d, 5),    \
+      HOPPER_ROW_OPS(d, 6), HOPPER_ROW_OPS(d, 7)
+#define HOPPER_D64_OPS(d)                                                 \
+  HOPPER_D32_OPS(d), HOPPER_ROW_OPS(d, 8), HOPPER_ROW_OPS(d, 9),           \
+      HOPPER_ROW_OPS(d, 10), HOPPER_ROW_OPS(d, 11), HOPPER_ROW_OPS(d, 12), \
+      HOPPER_ROW_OPS(d, 13), HOPPER_ROW_OPS(d, 14), HOPPER_ROW_OPS(d, 15)
 
 // d (+)= A * B, m64n64k16; A and B from shared memory, both K-major.
 // accumulate = 0 overwrites d.
@@ -214,8 +222,27 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A * B, m64n128k16; A and B from shared memory, both K-major (B's
+// 128 rows are two adjacent tiles). d[j][e] is row 16w + g + 8 * (e >> 1),
+// column 8j + 2t + (e & 1), j < 16.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_D64_OPS(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #undef HOPPER_D32
+#undef HOPPER_D64
+#undef HOPPER_ROW_OPS
 #undef HOPPER_D32_OPS
+#undef HOPPER_D64_OPS
 
 // 2^x on the SFU (ex2.approx, flushes denormals)
 __device__ __forceinline__ float exp2_approx(float x) {

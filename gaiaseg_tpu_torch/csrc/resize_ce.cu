@@ -15,37 +15,58 @@
 // written: each thread blends its rows in registers and reduces them to the
 // softmax-CE terms at once.
 //
-// Layout. A thread owns one output column X, so neighbouring threads read
-// neighbouring addresses of mid and label (coalesced), and loops over the C
-// classes of its pixel in registers. Output rows with the same pair of mid
-// rows form an "interval" j in [-1, h-1] (j = floor(fy)); a thread loads the
-// interval's two mid rows once and walks its f (f/2 at the edges) rows.
+// Rows with the same pair of mid rows form an "interval" j in [-1, h-1]
+// (j = floor(fy)): f output rows, f/2 at the two edges, where both taps fall
+// on the same mid row.
 //
 // No float atomics, bit-reproducible. The TPU kernel adds into one scalar
 // across grid steps (resize_ce.py:123-125) and into overlapping gmid rows
-// (:164), which is safe only because TPU grid steps run in order. Here K1
-// writes one partial sum per block and a second, one-block launch reduces
-// the partials in a fixed order (in double). In K2 each thread OWNS one mid
-// row y of its column and gathers from the two intervals that read row y
-// (j = y-1 as the upper tap, j = y as the lower tap), recomputing their
-// softmax: each output row is evaluated by two threads, about 2x the
-// exponentials of a scatter, no atomics.
+// (:164), which is safe only because TPU grid steps run in order. Here every
+// sum has one owner and a fixed order.
+//
+// K1 layout. A thread owns one output column X of one interval, so
+// neighbouring threads read neighbouring addresses of mid and label
+// (coalesced); it loads the interval's two mid rows once, walks its rows with
+// the C classes of a pixel in registers, and the block writes one partial
+// sum, which a second, one-block launch reduces in a fixed order (in double).
+//
+// K2 layout. A block owns a tile of one image: R consecutive mid rows (R a
+// divisor of h, at most 8) by 32 columns, and has 32 x RY threads: thread
+// (x, ry) takes the output rows ry, ry + RY, .. of each of the R + 1
+// intervals that touch the tile, so the rows of an interval are spread over
+// RY row lanes (warps) instead of being walked by one thread. Each pixel's
+// softmax is computed once (max, sum and P in one go); (1-w) d and w d are
+// added into the thread's own per-class accumulators for the interval's lower
+// and upper mid row. The upper row of interval j is the lower row of
+// interval j + 1, so the thread carries that accumulator over (and the taps
+// it has already loaded), and after interval j mid row j is complete in the
+// row lanes: they put their accumulators into shared memory, the block adds
+// them in the fixed order ry = 0, 1, .. and writes the row coalesced. Only
+// the two intervals on a tile's row border are evaluated by two blocks:
+// (R + 1) / R of the exponentials, none twice when R = h. Ignored pixels
+// skip the exponentials. Two instances: C = 19 with the classes unrolled in
+// registers (bwd_tile), and any C up to 256 with the accumulators in shared
+// memory and the classes walked in three passes (max, sum, accumulate) from
+// the cached mid rows (bwd_tile_any), so 150 classes run without spills.
 //
 // What bounds it on the H100. At the flagship loss (batch 8, 512x1024 labels,
 // C = 19) the function reads ~10-20 MB of mid plus 16.8 MB of int32 labels
 // (~8-11 us at 3.35 TB/s) and evaluates ~80 M exponentials (valid pixels x C),
 // which issue on the SFUs (16/clk/SM, ~20 us at 1.98 GHz); the count against
-// the 67 TFLOP/s float32 rate is ~9 us. The design keeps both near one pass:
-// mid rows are read once per interval and held in registers, labels once
-// (twice in K2), and ignored pixels skip the exponentials.
+// the 67 TFLOP/s float32 rate is ~9 us. Labels are read once per evaluation
+// and mid rows once per interval; K2's ~10 instructions per class and pixel
+// (blend, max, exp2, sum, the label's class, two adjoint FMAs) on the CUDA
+// cores are its real floor, ~30 us at full issue rate.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;  // threads per block, along the output width
+constexpr int kThreads = 128;  // K1: threads per block, along the width
 constexpr int kReduceThreads = 1024;
 
 struct Interval {
@@ -164,63 +185,225 @@ reduce_kernel(const float* __restrict__ partial, int n_blocks,
   }
 }
 
-// grid (ceil(W / kThreads), h, N): block (x, y, n) owns gmid[n, y, :, x-range]
-template <int CMAX>
-__global__ void __launch_bounds__(kThreads)
-bwd_kernel(const float* __restrict__ mid, const int* __restrict__ label,
-           const float* __restrict__ scale_ptr, float* __restrict__ gmid,
-           int h, int C, int W, int f, int ignore_index) {
-  const int X = blockIdx.x * kThreads + threadIdx.x;
-  const int y = blockIdx.y;
-  const int n = blockIdx.z;
-  if (X >= W) return;
-  const int H = h * f;
-  const float scale = *scale_ptr;  // g / max(sum valid, 1)
-  const int* lab_col = label + (size_t)n * H * W + X;
-  float acc[CMAX];
+// ---------------------------------------------------------------------------
+// K2
+
+constexpr int kCols = 32;      // columns of a tile: one warp per row lane
+constexpr int kMaxLanes = 8;   // most row lanes (warps) of a block
+constexpr int kRegClasses = 19;  // the instance with classes in registers
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kAnySmemBudget = 96 * 1024;  // bwd_tile_any's accumulators
+
+constexpr int kAhead = 4;      // labels read ahead of their rows
+
+using hopper::exp2_approx;
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// One mid row's C taps of a column into registers (coalesced across the
+// warp, shared through L1 by the block's row lanes).
+template <int C>
+__device__ __forceinline__ void load_taps(const float* __restrict__ mid, int n,
+                                          int h, int W, int row, int X,
+                                          float (&v)[C]) {
+  const float* p = mid + ((size_t)(n * h + row) * C) * W + X;
 #pragma unroll
-  for (int c = 0; c < CMAX; ++c) acc[c] = 0.f;
-  // the two intervals that read mid row y: j = y-1 (upper tap), j = y (lower
-  // tap); at the edges one interval has both taps on row y
-  for (int j = y - 1; j <= y; ++j) {
+  for (int c = 0; c < C; ++c) v[c] = __ldg(p + (size_t)c * W);
+}
+
+// The block adds the row lanes' accumulators, red[c][ry][x], in the order
+// ry = 0, 1, .. and writes mid row `out` (gmid + the row's offset), columns
+// below W only. Called by every thread of the block.
+__device__ __forceinline__ void reduce_lanes(const float* red, int C,
+                                             int lanes, float* out, int W,
+                                             int x0) {
+  __syncthreads();
+  const int tid = threadIdx.y * kCols + threadIdx.x;
+  for (int i = tid; i < C * kCols; i += lanes * kCols) {
+    const int c = i / kCols, x = i % kCols;
+    if (x0 + x >= W) continue;
+    float sum = 0.f;
+    for (int r = 0; r < lanes; ++r) sum += red[(c * lanes + r) * kCols + x];
+    out[(size_t)c * W + x0 + x] = sum;
+  }
+  __syncthreads();
+}
+
+// grid (ceil(W / 32), h / R, N), block (32, RY): tile (x, rows r0 .. r0+R)
+template <int C>
+__global__ void __launch_bounds__(kCols * kMaxLanes, 2)
+bwd_tile(const float* __restrict__ mid, const int* __restrict__ label,
+         const float* __restrict__ scale_ptr, float* __restrict__ gmid,
+         int h, int W, int f, int R, int ignore_index) {
+  __shared__ float red[C * kMaxLanes * kCols];
+  const int x0 = blockIdx.x * kCols, X = x0 + threadIdx.x;
+  const int ry = threadIdx.y, lanes = blockDim.y;
+  const int r0 = blockIdx.y * R, r1 = r0 + R, n = blockIdx.z;
+  const int H = h * f;
+  const bool live = X < W;
+  const int Xc = min(X, W - 1);          // idle lanes load in bounds
+  const float scale = *scale_ptr;        // g / max(sum valid, 1)
+  const int* lab_col = label + (size_t)n * H * W + Xc;
+  // cur: mid row j (interval j's lower tap), nxt: mid row j + 1 (its upper)
+  float a[C], b[C], cur[C], nxt[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) cur[c] = nxt[c] = 0.f;
+  load_taps<C>(mid, n, h, W, max(r0 - 1, 0), Xc, b);
+  for (int j = r0 - 1; j < r1; ++j) {
     const Interval iv = interval(j, h, f);
-    float a[CMAX], b[CMAX];
-    load_row<CMAX>(mid + ((size_t)(n * h + iv.lo) * C) * W + X, C, W, a);
-    load_row<CMAX>(mid + ((size_t)(n * h + iv.hi) * C) * W + X, C, W, b);
-    for (int Y = iv.y0; Y < iv.y1; ++Y) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) a[c] = b[c];
+    if (iv.hi != iv.lo) load_taps<C>(mid, n, h, W, iv.hi, Xc, b);
+    if (j + 1 < r1) {
+      // the next interval's new taps and this thread's labels there: into L2
+      // while this interval computes
+      const Interval nx = interval(j + 1, h, f);
+      if (nx.hi != nx.lo) {
+        const float* p = mid + ((size_t)(n * h + nx.hi) * C) * W + Xc;
+        for (int c = ry; c < C; c += lanes) prefetch_l2(p + (size_t)c * W);
+      }
+      for (int Y = nx.y0 + ry; Y < nx.y1; Y += lanes)
+        prefetch_l2(lab_col + (size_t)Y * W);
+    }
+    for (int Y0 = iv.y0 + ry; live && Y0 < iv.y1; Y0 += kAhead * lanes) {
+      int lab[kAhead];
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        const int Y = Y0 + i * lanes;
+        lab[i] = Y < iv.y1 ? lab_col[(size_t)Y * W] : ignore_index;
+      }
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        if (lab[i] == ignore_index) continue;
+        const float w = upper_weight(Y0 + i * lanes, j, f);
+        float p[C];
+        float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          p[c] = a[c] * (1.f - w) + b[c] * w;
+          if (c & 1)
+            m1 = fmaxf(m1, p[c]);
+          else
+            m0 = fmaxf(m0, p[c]);
+        }
+        const float ml = fmaxf(m0, m1) * kLog2e;
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          p[c] = exp2_approx(fmaf(p[c], kLog2e, -ml));
+          s += p[c];
+        }
+        // d = (p / s - onehot) scale = (p - s onehot) (scale / s)
+        const float inv = __fdividef(scale, s);
+        const float wh = w * inv, wl = inv - wh;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float e = c == lab[i] ? p[c] - s : p[c];
+          cur[c] = fmaf(wl, e, cur[c]);
+          nxt[c] = fmaf(wh, e, nxt[c]);
+        }
+      }
+    }
+    if (j == h - 1) {                    // both taps on row h - 1
+#pragma unroll
+      for (int c = 0; c < C; ++c) cur[c] += nxt[c];
+    }
+    if (j >= r0) {                       // mid row j is complete: write it
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        red[(c * lanes + ry) * kCols + threadIdx.x] = cur[c];
+      reduce_lanes(red, C, lanes, gmid + ((size_t)(n * h + j) * C) * W, W, x0);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      // j = -1 has both taps on row 0: its lower-tap sums stay with row 0
+      cur[c] = j < 0 ? cur[c] + nxt[c] : nxt[c];
+      nxt[c] = 0.f;
+    }
+  }
+}
+
+// class c of a pixel: the blend of its two taps, columns a and b of mid
+__device__ __forceinline__ float blend(const float* __restrict__ a,
+                                       const float* __restrict__ b, int c,
+                                       int W, float w) {
+  return __ldg(a + (size_t)c * W) * (1.f - w) + __ldg(b + (size_t)c * W) * w;
+}
+
+// The same tiling for any C <= 256: a thread's two accumulators live in
+// shared memory, acc[which][c][ry][x] (the layout reduce_lanes reads), and a
+// pixel's classes are walked three times from the cached mid rows.
+__global__ void __launch_bounds__(kCols * kMaxLanes)
+bwd_tile_any(const float* __restrict__ mid, const int* __restrict__ label,
+             const float* __restrict__ scale_ptr, float* __restrict__ gmid,
+             int h, int C, int W, int f, int R, int ignore_index) {
+  extern __shared__ float acc[];
+  const int x0 = blockIdx.x * kCols, X = x0 + threadIdx.x;
+  const int ry = threadIdx.y, lanes = blockDim.y;
+  const int r0 = blockIdx.y * R, r1 = r0 + R, n = blockIdx.z;
+  const int H = h * f;
+  const bool live = X < W;
+  const int Xc = min(X, W - 1);
+  const float scale = *scale_ptr;
+  const int* lab_col = label + (size_t)n * H * W + Xc;
+  const int stride = lanes * kCols;      // between classes
+  float* cur = acc + ry * kCols + threadIdx.x;
+  float* nxt = cur + C * stride;
+  for (int c = 0; c < C; ++c) cur[c * stride] = nxt[c * stride] = 0.f;
+  for (int j = r0 - 1; j < r1; ++j) {
+    const Interval iv = interval(j, h, f);
+    const float* a = mid + ((size_t)(n * h + iv.lo) * C) * W + Xc;
+    const float* b = mid + ((size_t)(n * h + iv.hi) * C) * W + Xc;
+    for (int Y = iv.y0 + ry; live && Y < iv.y1; Y += lanes) {
       const int lab = lab_col[(size_t)Y * W];
       if (lab == ignore_index) continue;
       const float w = upper_weight(Y, j, f);
-      const float wt = (iv.lo == y ? 1.f - w : 0.f) + (iv.hi == y ? w : 0.f);
-      float up[CMAX];
       float m = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < CMAX; ++c) {
-        if (c < C) {
-          up[c] = a[c] * (1.f - w) + b[c] * w;
-          m = fmaxf(m, up[c]);
-        }
-      }
+      for (int c = 0; c < C; ++c)
+        m = fmaxf(m, blend(a, b, c, W, w));
+      const float ml = m * kLog2e;
       float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < CMAX; ++c) {
-        if (c < C) {
-          up[c] = __expf(up[c] - m);
-          s += up[c];
-        }
-      }
-      const float p_scale = wt * scale / s;
-      const float pick_scale = wt * scale;
-#pragma unroll
-      for (int c = 0; c < CMAX; ++c) {
-        if (c < C) acc[c] += up[c] * p_scale - (c == lab ? pick_scale : 0.f);
+      for (int c = 0; c < C; ++c)
+        s += exp2_approx(fmaf(blend(a, b, c, W, w), kLog2e, -ml));
+      const float inv = scale / s;
+      const float wh = w * inv, wl = inv - wh;
+      for (int c = 0; c < C; ++c) {
+        float e = exp2_approx(fmaf(blend(a, b, c, W, w), kLog2e, -ml));
+        if (c == lab) e -= s;
+        cur[c * stride] = fmaf(wl, e, cur[c * stride]);
+        nxt[c * stride] = fmaf(wh, e, nxt[c * stride]);
       }
     }
+    if (j == h - 1)
+      for (int c = 0; c < C; ++c) cur[c * stride] += nxt[c * stride];
+    if (j >= r0)
+      reduce_lanes(cur - (ry * kCols + threadIdx.x), C, lanes,
+                   gmid + ((size_t)(n * h + j) * C) * W, W, x0);
+    // the upper row becomes the lower one; j = -1 keeps its sums with row 0
+    for (int c = 0; c < C; ++c) {
+      if (j < 0) nxt[c * stride] += cur[c * stride];
+      cur[c * stride] = 0.f;
+    }
+    float* swap = cur;
+    cur = nxt;
+    nxt = swap;
   }
-  float* out = gmid + ((size_t)(n * h + y) * C) * W + X;
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c)
-    if (c < C) out[(size_t)c * W] = acc[c];
+}
+
+// K2's tiling: R the largest divisor of h that is at most 8; RY the largest
+// power of two that is at most min(8, f)
+struct Tiling {
+  int R, lanes;
+};
+
+Tiling tiling(int h, int f) {
+  Tiling t = {1, 1};
+  for (int r = 2; r <= 8; ++r)
+    if (h % r == 0) t.R = r;
+  while (2 * t.lanes <= f && 2 * t.lanes <= kMaxLanes) t.lanes *= 2;
+  return t;
 }
 
 bool shapes_ok(int n, int h, int C, int W, int f) {
@@ -272,13 +455,22 @@ int resize_ce_bwd(const float* mid, const int* label, const float* scale,
                   int ignore_index, void* stream) {
   if (!shapes_ok(n, h, C, W, f)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((W + kThreads - 1) / kThreads, h, n);
-  if (C <= 32)
-    bwd_kernel<32><<<grid, kThreads, 0, s>>>(mid, label, scale, gmid, h, C, W,
-                                             f, ignore_index);
-  else
-    bwd_kernel<256><<<grid, kThreads, 0, s>>>(mid, label, scale, gmid, h, C,
-                                              W, f, ignore_index);
+  Tiling t = tiling(h, f);
+  const dim3 grid((W + kCols - 1) / kCols, h / t.R, n);
+  if (C == kRegClasses) {
+    bwd_tile<kRegClasses><<<grid, dim3(kCols, t.lanes), 0, s>>>(
+        mid, label, scale, gmid, h, W, f, t.R, ignore_index);
+    return (int)cudaGetLastError();
+  }
+  // two accumulators a thread and class: fewer row lanes where C is large
+  while (t.lanes > 1 && 2 * C * t.lanes * kCols * 4 > kAnySmemBudget)
+    t.lanes /= 2;
+  const int smem = 2 * C * t.lanes * kCols * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_tile_any, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  bwd_tile_any<<<grid, dim3(kCols, t.lanes), smem, s>>>(
+      mid, label, scale, gmid, h, C, W, f, t.R, ignore_index);
   return (int)cudaGetLastError();
 }
 

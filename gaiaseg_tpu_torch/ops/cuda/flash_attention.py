@@ -13,7 +13,7 @@ projection need no copy:
 - K4 ``flash_bwd_dkv`` (replaces ``_dkv_kernel``): dK and dV.
 - K5 ``flash_bwd_dq`` (replaces ``_dq_kernel``): dQ.
 
-In bf16, K4 and K5 read q, k, v and dO by TMA through 4-D tensor maps
+In bf16, all three read q, k, v (and dO) by TMA through 4-D tensor maps
 (``tensor_map_layout``), built inside the C entry points from the same
 strides.
 
@@ -36,7 +36,7 @@ from . import build
 from .build import LAUNCHES
 
 HEAD_DIM = 64
-TILE_ROWS = 64      # rows of one staged tile (a TMA box in K4 and K5)
+TILE_ROWS = 64      # rows of one staged tile (a TMA box of the bf16 kernels)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -89,7 +89,7 @@ def flash_bwd_dq_reference(q, k, v, do, m, l, di) -> torch.Tensor:
 
 # --------------------------------------------------------------------- #
 def tensor_map_layout(t: torch.Tensor):
-    """The 4-D TMA tensor map through which the bf16 backward kernels read
+    """The 4-D TMA tensor map through which the bf16 kernels read
     a strided ``[B, N, H, 64]`` view (``csrc/hopper.cuh``
     ``encode_bnhd_map`` builds the same map from the element strides):
     ``(dims, byte_strides, box)`` with dims ``(64, H, N, B)`` innermost

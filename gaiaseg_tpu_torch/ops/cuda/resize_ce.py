@@ -140,7 +140,11 @@ def _check(mid: torch.Tensor, label: torch.Tensor, out_h: int) -> int:
 def _lib() -> ctypes.CDLL:
     """The built kernels with their C signatures declared (built at the
     first launch, never at import)."""
-    lib = build.load("resize_ce")
+    return bind(build.load("resize_ce"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a built ``resize_ce`` library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.resize_ce_fwd_partials.argtypes = [i, i, i]
     lib.resize_ce_fwd_partials.restype = i

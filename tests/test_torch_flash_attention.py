@@ -4,7 +4,11 @@ them.
 
 - K3: ``flash_fwd_reference`` (o, m, l) against ``flash_attention`` and the
   residuals of ``_flash_fwd`` at (1, 256, 2, 64) and the ragged
-  (1, 200, 1, 64) with block 128, within 2e-4.
+  (1, 200, 1, 64) with block 128, within 2e-4; and, at the lengths the
+  bf16 CUDA forward special-cases (N = 64: one key tile; 129: a 128-row
+  block with one real row; 200: a ragged second stage), 3 heads, in float32
+  and bf16: o within 1e-4 / 2e-2 of max|ref| (bf16 outputs round to half an
+  ulp, 2^-9), m and l within 1e-4.
 - K4/K5: each backward plain version, fed the JAX forward's own
   (q, k, v, o, m, l) and dO, against ``flash_attention_bwd`` at
   (1, 200, 2, 64) and the ragged (1, 130, 3, 64), block 128; and the
@@ -76,6 +80,36 @@ def test_fwd_reference_matches_pallas_interpret(interpret, shape, block):
     _close(m.numpy(), np.asarray(jm)[:, :, :n, 0], 2e-4, "m")
     np.testing.assert_allclose(l.numpy(), np.asarray(jl)[:, :, :n, 0],
                                rtol=2e-4, err_msg="l")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [64, 129, 200])
+def test_fwd_reference_matches_pallas_at_kernel_edge_lengths(interpret, n,
+                                                             dtype):
+    """The plain forward (what the CUDA forward is held to on the card)
+    against interpret-mode ``_flash_fwd(..., save_residuals=True)`` on the
+    same values: both sides get the inputs already rounded to ``dtype``."""
+    q, k, v, _ = _inputs((1, n, 3, 64), 10 + n)
+    jdt = jnp.dtype(dtype)
+    jq, jk, jv = (jnp.asarray(x.transpose(0, 2, 1, 3)).astype(jdt)
+                  for x in (q, k, v))
+    jo, (_, _, _, _, jm, jl) = jfa._flash_fwd(jq, jk, jv, 128, 128,
+                                              save_residuals=True)
+    tdt = getattr(torch, dtype)
+    # the same rounded values on the port's side, in its [B, N, H, 64]
+    tq, tk, tv = (_t(np.asarray(x.astype(jnp.float32)).transpose(0, 2, 1, 3))
+                  .to(tdt) for x in (jq, jk, jv))
+    o, m, l = fa.flash_fwd_reference(tq, tk, tv)
+    assert o.dtype == tdt and m.dtype == l.dtype == torch.float32
+    want_o = np.asarray(jo.astype(jnp.float32))[:, :, :n].transpose(0, 2, 1,
+                                                                    3)
+    for got, want, tol, name in (
+            (o.float().numpy(), want_o, 1e-4 if dtype == "float32" else 2e-2,
+             "o"),
+            (m.numpy(), np.asarray(jm)[:, :, :n, 0], 1e-4, "m"),
+            (l.numpy(), np.asarray(jl)[:, :, :n, 0], 1e-4, "l")):
+        assert got.shape == want.shape, name
+        assert np.abs(got - want).max() <= tol * np.abs(want).max(), name
 
 
 def _jax_residuals(q, k, v, block):

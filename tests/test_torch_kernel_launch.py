@@ -1,10 +1,12 @@
 """The Python around the port's kernel launches, on the CPU.
 
-- ``tensor_map_layout``: the 4-D TMA tensor map the bf16 flash backward
-  kernels (K4, K5) read a strided ``[B, N, H, 64]`` view through, against
+- ``tensor_map_layout``: the 4-D TMA tensor map the bf16 flash kernels
+  (K3, K4, K5) read a strided ``[B, N, H, 64]`` view through, against
   values computed by hand for the q, k and v views that ``ElasticMHA`` takes
   from the fused qkv projection (``qkv.unbind(2)``) at 6, 9 and 12 heads;
-  strides that TMA cannot take raise.
+  strides that TMA cannot take raise. At N = 129 the forward's q view has
+  a second 128-row block with one real row: the map's row dimension is N, so
+  the 63 rows a box reads past it arrive as zeros.
 - ``build.library_path``: the library name changes when a shared header
   ``csrc/*.cuh`` changes, so an edited header rebuilds.
 """
@@ -29,6 +31,24 @@ def test_tensor_map_layout_of_qkv_views(heads):
     dims, strides, _ = fa.tensor_map_layout(qkv[:, :, 0] * 0.125)
     assert dims == (64, heads, n, b)
     assert strides == (128, heads * 128, n * heads * 128)
+
+
+def test_tensor_map_layout_of_forward_q_view_at_129_tokens():
+    """The forward's q operand as ElasticMHA hands it over at N = 129: the
+    q view of the fused qkv, and the contiguous tensor the scale makes of
+    it; the map must state N itself (not N rounded up to a tile), since the
+    kernel relies on TMA's zero fill past row N."""
+    b, n, heads = 2, 129, 12
+    qkv = torch.zeros(b, n, 3, heads, 64, dtype=torch.bfloat16)
+    token = 3 * heads * 64 * 2
+    q_view = qkv.unbind(2)[0]
+    assert fa.tensor_map_layout(q_view) == (
+        (64, heads, n, b), (128, token, n * token),
+        (64, 1, fa.TILE_ROWS, 1))
+    assert fa.tensor_map_layout(q_view * 0.125) == (
+        (64, heads, n, b), (128, heads * 128, n * heads * 128),
+        (64, 1, fa.TILE_ROWS, 1))
+    assert -(-n // 128) == 2 and n - 128 == 1     # one real row in block 1
 
 
 def test_tensor_map_layout_raises_on_strides_tma_cannot_take():

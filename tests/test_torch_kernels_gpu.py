@@ -18,6 +18,7 @@ SHAPES = [
     (2, 3, 3, 5, 12, 9),
     (8, 16, 32, 19, 512, 1024),     # flagship decode loss
     (8, 32, 64, 19, 512, 1024),     # flagship aux loss
+    (2, 6, 10, 150, 24, 40),        # 150 classes: K2's any-C instance
 ]
 
 
@@ -59,6 +60,19 @@ def test_kernels_match_plain(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [SHAPES[2], SHAPES[4], SHAPES[5]])
+def test_grad_mid_is_deterministic(cuda, shape):
+    """K2 launched twice on the same inputs gives the same bits: the row
+    lanes' sums are added in a fixed order, no atomics."""
+    logits, label = _inputs(shape, cuda, seed=3)
+    mid = rc.width_interp(logits, shape[5])
+    scale = torch.full((1,), 1e-3, device=cuda)
+    first = rc.resize_ce_grad_mid(mid, label, scale, shape[4])
+    assert torch.equal(first, rc.resize_ce_grad_mid(mid, label, scale,
+                                                    shape[4]))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_matches_plain(cuda, dtype):
     """fused_resize_ce on CUDA tensors (K1 forward, K2 backward) against the
@@ -95,11 +109,11 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
 # flash attention: K3 (flash_fwd), K4 (flash_bwd_dkv), K5 (flash_bwd_dq)
 from gaiaseg_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
 
-# [B, N, H]: the ViT step, the cls token, ragged tails, and N = 1088, where
-# the last 128-row block of K4 / K5 is half full (its second warpgroup owns
-# no row)
+# [B, N, H]: the ViT step, the cls token, ragged tails, N = 1088, where the
+# last 128-row block is half full (its second warpgroup owns no row), N = 64
+# (one key tile) and N = 129 (a block with one real row)
 ATTN_SHAPES = [(8, 1024, 12), (2, 1025, 12), (1, 200, 2), (1, 3, 1),
-               (1, 1088, 2)]
+               (1, 1088, 2), (2, 64, 3), (2, 129, 3)]
 
 
 def _attn(b, n, h, dtype, device, seed=0):
@@ -157,6 +171,25 @@ def test_flash_backward_is_deterministic(cuda, shape, dtype):
               fa.flash_bwd_dq(q, k, v, do, m, l, di))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1025, 12), (2, 129, 3)])
+def test_flash_forward_is_deterministic(cuda, shape, dtype):
+    """K3 launched twice on the same inputs gives the same o, m and l."""
+    q, k, v, _ = _attn(*shape, dtype, cuda, seed=4)
+    for a, b in zip(fa.flash_fwd(q, k, v), fa.flash_fwd(q, k, v)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_forward_of_zeros_is_zero(cuda):
+    """All-zero q, k, v (a masked head) give exactly zero output."""
+    q, k, v, _ = _attn(2, 200, 3, torch.bfloat16, cuda)
+    o, m, l = fa.flash_fwd(q * 0, k * 0, v * 0)
+    assert float(o.abs().max()) == 0.0 and float(m.abs().max()) == 0.0
+    assert torch.equal(l, torch.full_like(l, 200.0))
 
 
 @pytest.mark.gpu

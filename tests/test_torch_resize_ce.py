@@ -4,7 +4,10 @@ JAX Pallas kernel run in interpret mode.
 On the CPU the port's autograd Function takes the plain torch versions of
 its two kernels; ``fused_resize_ce_reference`` is the plain version end to
 end. Both are held against ``gaiaseg_tpu`` ``fused_resize_ce(...,
-interpret=True)`` at the shapes of tests/test_resize_ce.py. The CUDA
+interpret=True)`` at the shapes of tests/test_resize_ce.py, and at the
+shapes the CUDA backward special-cases: 150 classes (its any-C instance)
+with h = 3 (one tile spans every mid row), and row factors 4, 16 and 32 (1,
+2 and 4 output rows per row lane and interval). The CUDA
 kernels themselves are held against the plain versions by
 tests/test_torch_kernels_gpu.py (skipped without a card) and by
 chip_smoke.py.
@@ -68,6 +71,36 @@ def test_loss_and_grad_match_jax(shape, path):
     j_loss, j_grad = _jax_loss_and_grad(shape)
     assert abs(float(loss) - j_loss) <= 1e-5
     np.testing.assert_allclose(grad.numpy(), j_grad, rtol=0, atol=1e-7)
+
+
+# (n, h, w, c, H, W) at which the CUDA backward changes its tiling
+KERNEL_EDGE_SHAPES = {
+    "c150_h3": (1, 3, 4, 150, 12, 8),
+    "f4": (1, 4, 3, 19, 16, 6),
+    "f16": (1, 3, 3, 19, 48, 6),
+    "f32": (1, 3, 2, 19, 96, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_EDGE_SHAPES))
+def test_loss_and_grad_match_jax_at_kernel_edge_shapes(case):
+    """The port's ``fused_resize_ce`` (on the CPU: K1's and K2's plain
+    versions plus the width adjoint) against ``jax.grad`` of the JAX
+    ``fused_resize_ce(..., interpret=True)``, whose backward is
+    ``_frc_bwd``; float32, gradient within 1e-4 of max|ref| (the two sides
+    sum the softmax and the row adjoint in different orders)."""
+    shape = KERNEL_EDGE_SHAPES[case]
+    n, h, w, c, H, W = shape
+    assert rc.supports_fused_resize_ce((h, w), (H, W), False)
+    logits, lab = _rand(*shape, seed=3)
+    j_loss, j_grad = jax.value_and_grad(
+        lambda lg: jrc.fused_resize_ce(lg, jnp.asarray(lab), (H, W), 255,
+                                       True))(jnp.asarray(logits))
+    loss, grad = _port_loss_and_grad(rc.fused_resize_ce, logits, lab, (H, W))
+    j_grad = np.asarray(j_grad)
+    assert abs(float(loss) - float(j_loss)) <= 1e-5 * abs(float(j_loss))
+    assert grad.shape == j_grad.shape
+    assert np.abs(grad.numpy() - j_grad).max() <= 1e-4 * np.abs(j_grad).max()
 
 
 def test_grad_mid_reference_is_the_adjoint_of_the_sums():
