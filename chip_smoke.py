@@ -12,12 +12,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build    nvcc builds every kernel of ``gaiaseg_tpu_torch/csrc`` and prints
             each kernel's registers and spills from ptxas and any wgmma
             serialisation warning; the bf16 attention kernels (K3, K4, K5)
-            and K2's two instances must not spill.
+            and the two instances each of K1 and K2 must not spill.
 3. kernels  K1 (``resize_ce_fwd``) and K2 (``resize_ce_bwd``) against their
             plain torch versions at the flagship and the ViT loss shapes
-            (float32 and bf16 logits), the test shapes, 150 classes (K2's
-            any-C instance), all-ignored labels; K2 run twice must agree
-            bit for bit; then their times (CUDA events, L2 flushed,
+            (float32 and bf16 logits), the test shapes, 150 classes (the
+            any-C instances), all-ignored labels; K1 and K2 run twice must
+            agree bit for bit; then their times (CUDA events, L2 flushed,
             medians) beside the plain version, the library call and the
             bound.
 4. segmentor  the flagship segmentor's loss and gradients through the
@@ -82,11 +82,12 @@ PHASES = ("device", "build", "kernels", "segmentor", "train", "eval",
           "flash_kernels", "vit_segmentor", "vit_train", "vit_eval")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
-REPO_KERNELS = ("fwd_kernel", "reduce_kernel", "bwd_tile", "bwd_tile_any",
+REPO_KERNELS = ("fwd_tile", "fwd_tile_any", "bwd_tile", "bwd_tile_any",
                 "fwd_wgmma", "bwd_dkv_wgmma", "bwd_dq_wgmma", "fwd_f32",
                 "bwd_dkv_f32", "bwd_dq_f32")
 # must not spill, by source (a template's instances all count)
-NO_SPILL = {"resize_ce": ("bwd_tile", "bwd_tile_any"),
+NO_SPILL = {"resize_ce": ("fwd_tile", "fwd_tile_any", "bwd_tile",
+                          "bwd_tile_any"),
             "flash_attention": ("fwd_wgmma", "bwd_dkv_wgmma", "bwd_dq_wgmma")}
 VIT_ITERS = 4     # one sandwich cycle: MAX, MIN, 2 random
 # images of the flash-vs-dense check: the train step's batch. The worst
@@ -164,29 +165,15 @@ def phase_device(ctx):
     print(f"[device] tf32 {ctx['tf32']}")
 
 
-def _kernel_name(mangled: str) -> str:
-    """A device function's name (with its template arguments) out of its
-    mangled name, e.g. ``_ZN<ns>13bwd_dkv_wgmmaE...`` -> bwd_dkv_wgmma."""
-    rest, parts = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
-    while rest[:1].isdigit():
-        digits = re.match(r"\d+", rest).group()
-        n = int(digits)
-        parts.append(rest[len(digits):len(digits) + n])
-        rest = rest[len(digits) + n:]
-    name = parts[-1] if parts else mangled
-    if rest.startswith("I") and "E" in rest:
-        name += f"<{rest[1:rest.index('E')]}>"
-    return name
-
-
 def _ptxas(log: str) -> dict:
     """{kernel: registers, static shared memory, spill bytes} from nvcc's
     ``-Xptxas=-v`` output."""
+    from gaiaseg_tpu_torch.ops.cuda.build import kernel_name
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            cur = out.setdefault(_kernel_name(m.group(1)), {})
+            cur = out.setdefault(kernel_name(m.group(1)), {})
             continue
         if cur is None:
             continue
@@ -263,6 +250,10 @@ def _check_case(name, shape, dtype, seed, errs, log):
     logits, label = _inputs(shape, dtype, seed)
     mid = rc.width_interp(logits, W)
     ls, ws = rc.resize_ce_sums(mid, label, H)
+    check(all(torch.equal(x, y) for x, y in
+              zip((ls, ws), rc.resize_ce_sums(mid, label, H))),
+          f"{name}: K1 launched twice on the same inputs gives different "
+          "bits")
     rls, rws = rc.resize_ce_sums_reference(mid, label, H)
     loss, rloss = ls / ws.clamp_min(1), rls / rws.clamp_min(1)
     check(float(ws) == float(rws), f"{name}: valid count {ws} != {rws}")
@@ -299,8 +290,8 @@ def _check_case(name, shape, dtype, seed, errs, log):
                 "autograd_loss_rel": e2e, "autograd_grad_max_abs": g2})
     print(f"[kernels] {name:<22} {str(dtype)[6:]:<8} loss {float(loss):.6f} "
           f"rel {rel:.1e} | K2 max|d| {gerr:.1e} (max|ref| {gmax:.1e}) | "
-          f"autograd loss rel {e2e:.1e} grad max|d| {g2:.1e} | K2 twice: "
-          "bit-equal")
+          f"autograd loss rel {e2e:.1e} grad max|d| {g2:.1e} | K1, K2 "
+          "twice: bit-equal")
 
 
 def _time_ms(fn, flush, iters=20, warmup=3) -> float:
@@ -399,7 +390,7 @@ def phase_kernels(ctx):
     test_shapes = {"test0": (2, 19, 8, 8, 32, 32),
                    "test1": (1, 7, 4, 6, 16, 20),
                    "test2": (2, 5, 3, 3, 12, 9),
-                   # 150 classes (ADE20K): K2's any-C instance
+                   # 150 classes (ADE20K): the any-C instances
                    "c150": (2, 150, 6, 10, 24, 40)}
     errs = {"resize_ce_fwd": 0.0, "resize_ce_bwd": 0.0}
     log = ctx["kernel_checks"] = []

@@ -24,39 +24,64 @@
 // (:164), which is safe only because TPU grid steps run in order. Here every
 // sum has one owner and a fixed order.
 //
-// K1 layout. A thread owns one output column X of one interval, so
-// neighbouring threads read neighbouring addresses of mid and label
-// (coalesced); it loads the interval's two mid rows once, walks its rows with
-// the C classes of a pixel in registers, and the block writes one partial
-// sum, which a second, one-block launch reduces in a fixed order (in double).
+// Both kernels tile alike. A block owns a tile of one image: R consecutive
+// mid rows by 32 columns, and has 32 x RY threads: thread (x, ry) takes the
+// output rows ry, ry + RY, .. of each interval it evaluates, so the rows of
+// an interval are spread over RY row lanes (warps) instead of being walked by
+// one thread. The taps go to registers through L1 (load_taps: the block's
+// lanes read the same taps at about the same time), and the upper taps of
+// interval j, the lower taps of j + 1, are carried over. Labels are read
+// ahead of their rows, and the next interval's taps and labels are
+// prefetched into L2 while this one computes.
 //
-// K2 layout. A block owns a tile of one image: R consecutive mid rows (R a
-// divisor of h, at most 8) by 32 columns, and has 32 x RY threads: thread
-// (x, ry) takes the output rows ry, ry + RY, .. of each of the R + 1
-// intervals that touch the tile, so the rows of an interval are spread over
-// RY row lanes (warps) instead of being walked by one thread. Each pixel's
-// softmax is computed once (max, sum and P in one go); (1-w) d and w d are
-// added into the thread's own per-class accumulators for the interval's lower
-// and upper mid row. The upper row of interval j is the lower row of
-// interval j + 1, so the thread carries that accumulator over (and the taps
-// it has already loaded), and after interval j mid row j is complete in the
-// row lanes: they put their accumulators into shared memory, the block adds
-// them in the fixed order ry = 0, 1, .. and writes the row coalesced. Only
-// the two intervals on a tile's row border are evaluated by two blocks:
-// (R + 1) / R of the exponentials, none twice when R = h. Ignored pixels
-// skip the exponentials. Two instances: C = 19 with the classes unrolled in
-// registers (bwd_tile), and any C up to 256 with the accumulators in shared
-// memory and the classes walked in three passes (max, sum, accumulate) from
-// the cached mid rows (bwd_tile_any), so 150 classes run without spills.
+// K1 layout. Tile [r0, r0 + R) owns the intervals j in [r0, r0 + R), and the
+// first tile also j = -1, so every pixel's CE is added once. A thread keeps
+// the interval's taps in log2 units (a = lower row, d = upper - lower) and
+// computes a pixel as u_c = a_c + w d_c, m = max u_c, lse = (m + lg2 sum
+// 2^(u_c - m)) ln 2, the picked logit blended from its two taps (L1 hits),
+// on the SFU's ex2/lg2. RY is the largest power of two up to min(4, f); R
+// gives a thread up to 16 output rows a tile (at the flagship's losses R = 2
+// and 4, 2048 blocks of 128 threads, 20 warps an SM at 96 registers: more
+// rows of one interval a thread and smaller blocks measured faster than 8
+// lanes, more warps or more labels ahead). Two instances: C = 19 with the
+// classes in registers (fwd_tile), and any C up to 256 with an online
+// logsumexp over the classes read from the L1-cached taps (fwd_tile_any).
+// Each thread keeps float partial sums; the block adds them in a fixed order
+// into its slot of a workspace, and the last block to finish (an integer
+// ticket) adds the slots in block order in double, writes the two sums and
+// sets the ticket back to 0: one launch. The workspace lives with the
+// caller, one per stream.
 //
-// What bounds it on the H100. At the flagship loss (batch 8, 512x1024 labels,
-// C = 19) the function reads ~10-20 MB of mid plus 16.8 MB of int32 labels
-// (~8-11 us at 3.35 TB/s) and evaluates ~80 M exponentials (valid pixels x C),
-// which issue on the SFUs (16/clk/SM, ~20 us at 1.98 GHz); the count against
-// the 67 TFLOP/s float32 rate is ~9 us. Labels are read once per evaluation
-// and mid rows once per interval; K2's ~10 instructions per class and pixel
-// (blend, max, exp2, sum, the label's class, two adjoint FMAs) on the CUDA
-// cores are its real floor, ~30 us at full issue rate.
+// K2 layout. R a divisor of h, at most 8, and RY up to min(8, f); thread
+// (x, ry) works through each of the R + 1 intervals that touch the tile. Each
+// pixel's softmax is computed once (max, sum and P in one go); (1-w) d and w
+// d are added into the thread's own per-class accumulators for the
+// interval's lower and upper mid row. The upper row of interval j is the
+// lower row of interval j + 1, so the thread carries that accumulator over
+// (and the taps it has already loaded), and after interval j mid row j is
+// complete in the row lanes: they put their accumulators into shared memory,
+// the block adds them in the fixed order ry = 0, 1, .. and writes the row
+// coalesced. Only the two intervals on a tile's row border are evaluated by
+// two blocks: (R + 1) / R of the exponentials, none twice when R = h.
+// Ignored pixels skip the exponentials. Two instances: C = 19 with the
+// classes unrolled in registers (bwd_tile), and any C up to 256 with the
+// accumulators in shared memory and the classes walked in three passes (max,
+// sum, accumulate) from the cached mid rows (bwd_tile_any), so 150 classes
+// run without spills.
+//
+// What bounds them on the H100. At the flagship loss (batch 8, 512x1024
+// labels, C = 19) the function reads ~10-20 MB of mid plus 16.8 MB of int32
+// labels (~8-11 us at 3.35 TB/s) and evaluates ~72 M exponentials (valid
+// pixels x C), which issue on the SFUs (16/clk/SM: ~20 us at 1.98 GHz); the
+// count against the 67 TFLOP/s float32 rate is ~8 us (K1). K1 needs one ex2
+// a class and pixel and one lg2 a pixel beside ~4 CUDA-core instructions a
+// class (blend, max, subtract, add), ~125 a pixel in all; it runs at about
+// twice that SFU floor with the SFU ~half busy: each warp waits on its own
+// dependent chains and loads, and neither more warps (fewer registers) nor
+// more independent work a thread (more registers, fewer warps) measured
+// faster (PERF.md, PR 5). K2's ~10 instructions per class and pixel (blend,
+// max, exp2, sum, the label's class, two adjoint FMAs) on the CUDA cores are
+// its real floor, ~30 us at full issue rate.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,8 +91,21 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // K1: threads per block, along the width
-constexpr int kReduceThreads = 1024;
+constexpr int kCols = 32;      // columns of a tile: one warp per row lane
+constexpr int kMaxLanes = 8;   // most row lanes (warps) of a block
+constexpr int kRegClasses = 19;  // the instances with classes in registers
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kAnySmemBudget = 96 * 1024;  // bwd_tile_any's accumulators
+constexpr int kFwdLanes = 4;   // K1: most row lanes of a block
+constexpr int kFwdRows = 16;   // K1: output rows a thread takes in a tile
+// K1's workspace, in 32-bit words: the ticket, a pad word (the slots start
+// 8-byte aligned, read as float2), then each block's (loss, count) slot
+constexpr int kWorkHeader = 2;
+
+constexpr int kAhead = 4;      // labels read ahead of their rows
+
+using hopper::exp2_approx;
 
 struct Interval {
   int lo, hi;      // mid rows of the lower and upper tap (edge clamped)
@@ -88,116 +126,6 @@ __device__ __forceinline__ float upper_weight(int Y, int j, int f) {
   return (Y + 0.5f) / f - 0.5f - j;
 }
 
-template <int CMAX>
-__device__ __forceinline__ void load_row(const float* __restrict__ row,
-                                         int C, int W, float (&v)[CMAX]) {
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) v[c] = c < C ? row[(size_t)c * W] : 0.f;
-}
-
-// grid (ceil(W / kThreads), h + 1, N): block (x, j + 1, n)
-template <int CMAX>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const float* __restrict__ mid, const int* __restrict__ label,
-           float* __restrict__ partial, int h, int C, int W, int f,
-           int ignore_index) {
-  const int X = blockIdx.x * kThreads + threadIdx.x;
-  const int j = (int)blockIdx.y - 1;
-  const int n = blockIdx.z;
-  const int H = h * f;
-  float loss = 0.f, count = 0.f;
-  if (X < W) {
-    const Interval iv = interval(j, h, f);
-    float a[CMAX], b[CMAX];
-    load_row<CMAX>(mid + ((size_t)(n * h + iv.lo) * C) * W + X, C, W, a);
-    load_row<CMAX>(mid + ((size_t)(n * h + iv.hi) * C) * W + X, C, W, b);
-    const int* lab_col = label + (size_t)n * H * W + X;
-    for (int Y = iv.y0; Y < iv.y1; ++Y) {
-      const int lab = lab_col[(size_t)Y * W];
-      if (lab == ignore_index) continue;
-      const float w = upper_weight(Y, j, f);
-      float up[CMAX];
-      float m = -INFINITY, pick = 0.f;
-#pragma unroll
-      for (int c = 0; c < CMAX; ++c) {
-        if (c < C) {
-          up[c] = a[c] * (1.f - w) + b[c] * w;
-          m = fmaxf(m, up[c]);
-          if (c == lab) pick = up[c];
-        }
-      }
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < CMAX; ++c)
-        if (c < C) s += __expf(up[c] - m);
-      loss += m + __logf(s) - pick;
-      count += 1.f;
-    }
-  }
-  // fixed-order block reduction: warp shuffles, then warp 0 over the warps
-  for (int o = 16; o > 0; o >>= 1) {
-    loss += __shfl_down_sync(0xffffffffu, loss, o);
-    count += __shfl_down_sync(0xffffffffu, count, o);
-  }
-  __shared__ float s_loss[kThreads / 32], s_count[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_loss[warp] = loss;
-    s_count[warp] = count;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float l = 0.f, c = 0.f;
-    for (int i = 0; i < kThreads / 32; ++i) {
-      l += s_loss[i];
-      c += s_count[i];
-    }
-    const size_t bid =
-        ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    partial[2 * bid] = l;
-    partial[2 * bid + 1] = c;
-  }
-}
-
-// one block: sums[0] = sum of loss partials, sums[1] = sum of counts
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_kernel(const float* __restrict__ partial, int n_blocks,
-              float* __restrict__ sums) {
-  __shared__ double s_loss[kReduceThreads], s_count[kReduceThreads];
-  double l = 0.0, c = 0.0;
-  for (int i = threadIdx.x; i < n_blocks; i += kReduceThreads) {
-    l += partial[2 * i];
-    c += partial[2 * i + 1];
-  }
-  s_loss[threadIdx.x] = l;
-  s_count[threadIdx.x] = c;
-  __syncthreads();
-  for (int o = kReduceThreads / 2; o > 0; o >>= 1) {
-    if (threadIdx.x < o) {
-      s_loss[threadIdx.x] += s_loss[threadIdx.x + o];
-      s_count[threadIdx.x] += s_count[threadIdx.x + o];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    sums[0] = (float)s_loss[0];
-    sums[1] = (float)s_count[0];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2
-
-constexpr int kCols = 32;      // columns of a tile: one warp per row lane
-constexpr int kMaxLanes = 8;   // most row lanes (warps) of a block
-constexpr int kRegClasses = 19;  // the instance with classes in registers
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kAnySmemBudget = 96 * 1024;  // bwd_tile_any's accumulators
-
-constexpr int kAhead = 4;      // labels read ahead of their rows
-
-using hopper::exp2_approx;
-
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
@@ -212,6 +140,263 @@ __device__ __forceinline__ void load_taps(const float* __restrict__ mid, int n,
 #pragma unroll
   for (int c = 0; c < C; ++c) v[c] = __ldg(p + (size_t)c * W);
 }
+
+// class c of a pixel: the blend of its two taps, columns a and b of mid
+__device__ __forceinline__ float blend(const float* __restrict__ a,
+                                       const float* __restrict__ b, int c,
+                                       int W, float w) {
+  return __ldg(a + (size_t)c * W) * (1.f - w) + __ldg(b + (size_t)c * W) * w;
+}
+
+// ---------------------------------------------------------------------------
+// K1
+
+// log2(x) on the SFU (lg2.approx, flushes denormals)
+__device__ __forceinline__ float log2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The picked logit of a pixel (0 for a label outside [0, C), as the TPU
+// kernel's one-hot gives): the blend of its two taps, columns lo and hi.
+__device__ __forceinline__ float pick_logit(const float* __restrict__ lo,
+                                            const float* __restrict__ hi,
+                                            int lab, int C, int W, float w) {
+  const bool in = (unsigned)lab < (unsigned)C;
+  const float v = blend(lo, hi, in ? lab : 0, W, w);
+  return in ? v : 0.f;
+}
+
+// The next interval's new taps and this thread's labels there: into L2
+// while this interval computes.
+__device__ __forceinline__ void prefetch_interval(
+    const float* __restrict__ mid, const int* __restrict__ lab_col, int n,
+    int h, int C, int W, int f, int j, int ry, int lanes) {
+  const Interval nx = interval(j, h, f);
+  if (nx.hi != nx.lo) {
+    const float* p = mid + ((size_t)(n * h + nx.hi) * C) * W;
+    for (int c = ry; c < C; c += lanes) prefetch_l2(p + (size_t)c * W);
+  }
+  for (int Y = nx.y0 + ry; Y < nx.y1; Y += lanes)
+    prefetch_l2(lab_col + (size_t)Y * W);
+}
+
+// The block's (loss, count): each warp by shuffles, then the row lanes in
+// the order ry = 0, 1, ..; thread (0, 0) writes them to the block's slot.
+// The last block to take a ticket adds every slot in block order, in
+// double, writes sums and sets the ticket back to 0 for the next launch on
+// this workspace. Called by every thread of the block.
+__device__ __forceinline__ void finish_sums(float loss, float count,
+                                            unsigned* __restrict__ work,
+                                            float* __restrict__ sums) {
+  __shared__ float s_part[2][kMaxLanes];
+  __shared__ double s_sum[2][kCols * kMaxLanes];
+  __shared__ bool s_last;
+  for (int o = 16; o > 0; o >>= 1) {
+    loss += __shfl_down_sync(0xffffffffu, loss, o);
+    count += __shfl_down_sync(0xffffffffu, count, o);
+  }
+  const int lanes = blockDim.y;
+  const int tid = threadIdx.y * kCols + threadIdx.x;
+  if (threadIdx.x == 0) {
+    s_part[0][threadIdx.y] = loss;
+    s_part[1][threadIdx.y] = count;
+  }
+  __syncthreads();
+  const unsigned blocks = gridDim.x * gridDim.y * gridDim.z;
+  float* slot = reinterpret_cast<float*>(work + kWorkHeader);
+  if (tid == 0) {
+    float l = 0.f, c = 0.f;
+    for (int r = 0; r < lanes; ++r) {
+      l += s_part[0][r];
+      c += s_part[1][r];
+    }
+    const unsigned b =
+        (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    slot[2 * b] = l;
+    slot[2 * b + 1] = c;
+    __threadfence();                     // the slot is seen before the ticket
+    s_last = atomicAdd(work, 1u) == blocks - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int threads = kCols * lanes;     // a power of two
+  // each thread's slots come from L2 (written by other SMs), eight loads in
+  // flight, and are added in block order
+  double l = 0.0, c = 0.0;
+  const float2* slot2 = reinterpret_cast<const float2*>(slot);
+  for (unsigned b0 = tid; b0 < blocks; b0 += 8 * threads) {
+    float2 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const unsigned b = b0 + k * threads;
+      v[k] = b < blocks ? __ldcg(slot2 + b) : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      l += v[k].x;
+      c += v[k].y;
+    }
+  }
+  s_sum[0][tid] = l;
+  s_sum[1][tid] = c;
+  __syncthreads();
+  for (int o = threads / 2; o > 0; o >>= 1) {
+    if (tid < o) {
+      s_sum[0][tid] += s_sum[0][tid + o];
+      s_sum[1][tid] += s_sum[1][tid + o];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    sums[0] = (float)s_sum[0][0];
+    sums[1] = (float)s_sum[1][0];
+    work[0] = 0u;
+  }
+}
+
+// grid (ceil(W / 32), ceil(h / R), N), block (32, RY): tile (x, rows r0 ..
+// r0+R), the intervals j in [r0, r0+R) and, in the first tile, j = -1
+template <int C>
+__global__ void __launch_bounds__(kCols * kMaxLanes, 2)
+fwd_tile(const float* __restrict__ mid, const int* __restrict__ label,
+         unsigned* __restrict__ work, float* __restrict__ sums, int h, int W,
+         int f, int R, int ignore_index) {
+  const int X = blockIdx.x * kCols + threadIdx.x;
+  const int ry = threadIdx.y, lanes = blockDim.y;
+  const int r0 = blockIdx.y * R, r1 = min(r0 + R, h), n = blockIdx.z;
+  const bool live = X < W;
+  const int Xc = min(X, W - 1);          // idle lanes load in bounds
+  const int* lab_col = label + (size_t)n * h * f * W + Xc;
+  const float inv_f = 1.f / f;
+  // interval j's taps in log2 units: a the lower row, d upper - lower
+  float a[C], d[C];
+  load_taps<C>(mid, n, h, W, r0, Xc, a);
+#pragma unroll
+  for (int c = 0; c < C; ++c) a[c] *= kLog2e;
+  float loss = 0.f, count = 0.f;
+  for (int j = r0 == 0 ? -1 : r0; j < r1; ++j) {
+    const Interval iv = interval(j, h, f);
+    if (iv.hi != iv.lo) {
+      load_taps<C>(mid, n, h, W, iv.hi, Xc, d);
+#pragma unroll
+      for (int c = 0; c < C; ++c) d[c] = fmaf(d[c], kLog2e, -a[c]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) d[c] = 0.f;
+    }
+    if (j + 1 < r1)
+      prefetch_interval(mid + Xc, lab_col, n, h, C, W, f, j + 1, ry, lanes);
+    const float* lo = mid + ((size_t)(n * h + iv.lo) * C) * W + Xc;
+    const float* hi = mid + ((size_t)(n * h + iv.hi) * C) * W + Xc;
+    for (int Y0 = iv.y0 + ry; live && Y0 < iv.y1; Y0 += kAhead * lanes) {
+      int lab[kAhead];
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        const int Y = Y0 + i * lanes;
+        lab[i] = Y < iv.y1 ? __ldcs(lab_col + (size_t)Y * W) : ignore_index;
+      }
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        if (lab[i] == ignore_index) continue;
+        const float w =
+            fmaf((float)(Y0 + i * lanes) + 0.5f, inv_f, -0.5f - (float)j);
+        float u[C];
+        float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          u[c] = fmaf(w, d[c], a[c]);
+          if (c & 1)
+            m1 = fmaxf(m1, u[c]);
+          else
+            m0 = fmaxf(m0, u[c]);
+        }
+        const float m = fmaxf(m0, m1);
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float e = exp2_approx(u[c] - m);
+          if (c & 1)
+            s1 += e;
+          else
+            s0 += e;
+        }
+        loss += fmaf(m + log2_approx(s0 + s1), kLn2,
+                     -pick_logit(lo, hi, lab[i], C, W, w));
+        count += 1.f;
+      }
+    }
+    // the upper taps are the next interval's lower ones
+#pragma unroll
+    for (int c = 0; c < C; ++c) a[c] += d[c];
+  }
+  finish_sums(loss, count, work, sums);
+}
+
+// one class into an online logsumexp in log2 units (m the running max, s
+// the sum scaled to it): one ex2, no branch
+__device__ __forceinline__ void online_lse(float& m, float& s, float u) {
+  const float gap = u - m;
+  const float e = exp2_approx(-fabsf(gap));
+  s = gap > 0.f ? fmaf(s, e, 1.f) : s + e;
+  m = fmaxf(m, u);
+}
+
+// The same tiling for any C <= 256: the classes of a pixel are read from
+// the L1-cached taps in one pass, into two online logsumexps (even and odd
+// classes) merged at the end.
+__global__ void __launch_bounds__(kCols * kMaxLanes)
+fwd_tile_any(const float* __restrict__ mid, const int* __restrict__ label,
+             unsigned* __restrict__ work, float* __restrict__ sums, int h,
+             int C, int W, int f, int R, int ignore_index) {
+  const int X = blockIdx.x * kCols + threadIdx.x;
+  const int ry = threadIdx.y, lanes = blockDim.y;
+  const int r0 = blockIdx.y * R, r1 = min(r0 + R, h), n = blockIdx.z;
+  const bool live = X < W;
+  const int Xc = min(X, W - 1);
+  const int* lab_col = label + (size_t)n * h * f * W + Xc;
+  const float inv_f = 1.f / f;
+  float loss = 0.f, count = 0.f;
+  for (int j = r0 == 0 ? -1 : r0; j < r1; ++j) {
+    const Interval iv = interval(j, h, f);
+    if (j + 1 < r1)
+      prefetch_interval(mid + Xc, lab_col, n, h, C, W, f, j + 1, ry, lanes);
+    const float* lo = mid + ((size_t)(n * h + iv.lo) * C) * W + Xc;
+    const float* hi = mid + ((size_t)(n * h + iv.hi) * C) * W + Xc;
+    for (int Y0 = iv.y0 + ry; live && Y0 < iv.y1; Y0 += kAhead * lanes) {
+      int lab[kAhead];
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        const int Y = Y0 + i * lanes;
+        lab[i] = Y < iv.y1 ? __ldcs(lab_col + (size_t)Y * W) : ignore_index;
+      }
+      for (int i = 0; i < kAhead; ++i) {
+        if (lab[i] == ignore_index) continue;
+        const float w =
+            fmaf((float)(Y0 + i * lanes) + 0.5f, inv_f, -0.5f - (float)j);
+        float m0 = -INFINITY, s0 = 0.f, m1 = -INFINITY, s1 = 0.f;
+        int c = 0;
+        for (; c + 1 < C; c += 2) {
+          online_lse(m0, s0, blend(lo, hi, c, W, w) * kLog2e);
+          online_lse(m1, s1, blend(lo, hi, c + 1, W, w) * kLog2e);
+        }
+        if (c < C) online_lse(m0, s0, blend(lo, hi, c, W, w) * kLog2e);
+        const float m = fmaxf(m0, m1);
+        const float s =
+            s0 * exp2_approx(m0 - m) + s1 * exp2_approx(m1 - m);
+        loss += fmaf(m + log2_approx(s), kLn2,
+                     -pick_logit(lo, hi, lab[i], C, W, w));
+        count += 1.f;
+      }
+    }
+  }
+  finish_sums(loss, count, work, sums);
+}
+
+// ---------------------------------------------------------------------------
+// K2
 
 // The block adds the row lanes' accumulators, red[c][ry][x], in the order
 // ry = 0, 1, .. and writes mid row `out` (gmid + the row's offset), columns
@@ -325,13 +510,6 @@ bwd_tile(const float* __restrict__ mid, const int* __restrict__ label,
   }
 }
 
-// class c of a pixel: the blend of its two taps, columns a and b of mid
-__device__ __forceinline__ float blend(const float* __restrict__ a,
-                                       const float* __restrict__ b, int c,
-                                       int W, float w) {
-  return __ldg(a + (size_t)c * W) * (1.f - w) + __ldg(b + (size_t)c * W) * w;
-}
-
 // The same tiling for any C <= 256: a thread's two accumulators live in
 // shared memory, acc[which][c][ry][x] (the layout reduce_lanes reads), and a
 // pixel's classes are walked three times from the cached mid rows.
@@ -406,45 +584,49 @@ Tiling tiling(int h, int f) {
   return t;
 }
 
+// K1's tiling: RY the largest power of two up to min(kFwdLanes, f); R the
+// most mid rows that give a thread at most kFwdRows output rows (the last
+// tile may be shorter)
+Tiling fwd_tiling(int h, int f) {
+  Tiling t = {1, 1};
+  while (2 * t.lanes <= f && 2 * t.lanes <= kFwdLanes) t.lanes *= 2;
+  t.R = max(1, min(h, kFwdRows * t.lanes / f));
+  return t;
+}
+
 bool shapes_ok(int n, int h, int C, int W, int f) {
   return n > 0 && n <= 65535 && h >= 3 && h < 65535 && C > 0 && C <= 256 &&
          W > 0 && f >= 2 && f % 2 == 0;
-}
-
-dim3 fwd_grid(int n, int h, int W) {
-  return dim3((W + kThreads - 1) / kThreads, h + 1, n);
 }
 
 }  // namespace
 
 extern "C" {
 
-// number of floats the caller allocates for K1's partial sums
+// 32-bit words of K1's workspace for any row factor: the ticket and one
+// slot a block. The caller zeroes it once and keeps it for the launches of
+// one stream; each launch leaves the ticket at 0 again.
 int resize_ce_fwd_partials(int n, int h, int W) {
-  const dim3 g = fwd_grid(n, h, W);
-  return 2 * (int)(g.x * g.y * g.z);
+  return kWorkHeader + 2 * ((W + kCols - 1) / kCols) * h * n;
 }
 
 // K1: sums[0] = sum over valid pixels of the CE, sums[1] = number of valid
 // pixels. Returns a cudaError_t (0 on success).
-int resize_ce_fwd(const float* mid, const int* label, float* partial,
-                  int n_partial, float* sums, int n, int h, int C, int W,
-                  int f, int ignore_index, void* stream) {
-  if (!shapes_ok(n, h, C, W, f) ||
-      n_partial < resize_ce_fwd_partials(n, h, W))
+int resize_ce_fwd(const float* mid, const int* label, unsigned* work,
+                  int n_work, float* sums, int n, int h, int C, int W, int f,
+                  int ignore_index, void* stream) {
+  if (!shapes_ok(n, h, C, W, f) || n_work < resize_ce_fwd_partials(n, h, W))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = fwd_grid(n, h, W);
-  if (C <= 32)
-    fwd_kernel<32><<<grid, kThreads, 0, s>>>(mid, label, partial, h, C, W, f,
-                                             ignore_index);
+  const Tiling t = fwd_tiling(h, f);
+  const dim3 grid((W + kCols - 1) / kCols, (h + t.R - 1) / t.R, n);
+  const dim3 block(kCols, t.lanes);
+  if (C == kRegClasses)
+    fwd_tile<kRegClasses><<<grid, block, 0, s>>>(mid, label, work, sums, h, W,
+                                                 f, t.R, ignore_index);
   else
-    fwd_kernel<256><<<grid, kThreads, 0, s>>>(mid, label, partial, h, C, W,
-                                              f, ignore_index);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  reduce_kernel<<<1, kReduceThreads, 0, s>>>(
-      partial, (int)(grid.x * grid.y * grid.z), sums);
+    fwd_tile_any<<<grid, block, 0, s>>>(mid, label, work, sums, h, C, W, f,
+                                        t.R, ignore_index);
   return (int)cudaGetLastError();
 }
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,8 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 # launches of each kernel since the last reset, counted by its wrapper where
-# it launches (K1's two launches, the per-block pass and the one-block
-# reduction, count as one)
+# it launches
 LAUNCHES = {"resize_ce_fwd": 0, "resize_ce_bwd": 0, "flash_fwd": 0,
             "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
@@ -50,6 +50,21 @@ def nvcc_path() -> str:
     raise RuntimeError(
         "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
         "PATH): the port's CUDA kernels are built from source at first use")
+
+
+def kernel_name(mangled: str) -> str:
+    """A device function's name, with an integer template argument, out of
+    the mangled name ptxas prints: ``_ZN12_GLOBAL__N_18fwd_tileILi19EE..``
+    -> ``fwd_tile<19>``."""
+    rest, parts = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        end = len(digits) + int(digits)
+        parts.append(rest[len(digits):end])
+        rest = rest[end:]
+    arg = re.match(r"ILi(\d+)E", rest)
+    return (parts[-1] if parts else mangled) \
+        + (f"<{arg.group(1)}>" if arg else "")
 
 
 def library_path(name: str) -> Path:

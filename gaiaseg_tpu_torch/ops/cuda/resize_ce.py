@@ -12,7 +12,9 @@ XLA; the row interpolation, logsumexp, pick and the reductions are the
 kernels of ``csrc/resize_ce.cu``:
 
 - K1 ``resize_ce_sums`` (replaces ``_fwd_kernel`` via ``_sums``): the sum of
-  the CE over valid pixels and the number of valid pixels.
+  the CE over valid pixels and the number of valid pixels, in one launch
+  that keeps its per-block partial sums and its ticket in a workspace held
+  here, one per (card, stream).
 - K2 ``resize_ce_grad_mid`` (replaces ``_bwd_kernel`` via ``_frc_bwd``): the
   gradient at the mid rows.
 
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -160,6 +162,22 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
 
 
+# K1's workspaces by (card, stream): the blocks' partial sums and the ticket
+# that finds the last block. Zeroed once; each launch leaves its ticket at 0,
+# and launches on one stream run in turn, so a stream needs one workspace.
+_WORKSPACES: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _fwd_workspace(words: int, device: torch.device,
+                   stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < words:
+        ws = _WORKSPACES[key] = torch.zeros(words, dtype=torch.int32,
+                                            device=device)
+    return ws
+
+
 def resize_ce_sums(mid: torch.Tensor, label: torch.Tensor, out_h: int,
                    ignore_index: int = 255
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -172,14 +190,15 @@ def resize_ce_sums(mid: torch.Tensor, label: torch.Tensor, out_h: int,
     f = _check(mid, label, out_h)
     n, h, c, w = mid.shape
     lib = _lib()
-    partial = torch.empty(lib.resize_ce_fwd_partials(n, h, w),
-                          dtype=torch.float32, device=mid.device)
     sums = torch.empty(2, dtype=torch.float32, device=mid.device)
     with torch.cuda.device(mid.device):    # launch on mid's card
+        stream = torch.cuda.current_stream().cuda_stream
+        work = _fwd_workspace(lib.resize_ce_fwd_partials(n, h, w),
+                              mid.device, stream)
         err = lib.resize_ce_fwd(mid.data_ptr(), label.data_ptr(),
-                                partial.data_ptr(), partial.numel(),
+                                work.data_ptr(), work.numel(),
                                 sums.data_ptr(), n, h, c, w, f, ignore_index,
-                                torch.cuda.current_stream().cuda_stream)
+                                stream)
     _raise_on(err, "resize_ce_fwd")
     LAUNCHES["resize_ce_fwd"] += 1
     return sums[0], sums[1]

@@ -46,14 +46,14 @@ CHECK_SHAPES = ((1, 3, 1), (2, 64, 3), (2, 129, 3), (1, 200, 2),
                 (1, 1088, 2), (2, 1025, 12), VIT)
 BF16_RTOL = 2e-2
 STAT_RTOL = 1e-4
-# the bf16 kernels' device functions, of this tree and of earlier ones
-REPORTED = ("fwd_mma", "fwd_wgmma", "bwd_dkv_wgmma", "bwd_dq_wgmma")
+# the bf16 kernels' device functions
+REPORTED = ("fwd_wgmma", "bwd_dkv_wgmma", "bwd_dq_wgmma")
 
 
 def compile_all(names, source="flash_attention", reported=REPORTED):
     """Build ``<source>.cu`` of every variant at once:
     {name: (library path, ptxas lines of the device functions whose names
-    contain one of ``reported``)}."""
+    contain one of ``reported``, each led by the function's name)}."""
     out_dir = build.BUILD_DIR / "compare"
     procs = {}
     for name in names:
@@ -73,7 +73,8 @@ def compile_all(names, source="flash_attention", reported=REPORTED):
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                cur = next((k for k in reported if k in m.group(1)), None)
+                cur = build.kernel_name(m.group(1)) \
+                    if any(k in m.group(1) for k in reported) else None
             elif cur and ("registers" in line or "spill" in line):
                 keep.append(f"{cur}: {line.strip()}")
             if re.search(r"\(C75\d\d\)", line) and any(k in line

@@ -72,6 +72,75 @@ def test_grad_mid_is_deterministic(cuda, shape):
                                                     shape[4]))
 
 
+# K1 at the ViT path's losses (h = 128, f = 4; h = 32, f = 16), at 150
+# classes over 8 mid rows, and with both edge intervals ignored
+SUMS_SHAPES = {"vit_decode": (8, 128, 128, 19, 512, 512),
+               "vit_aux": (8, 32, 32, 19, 512, 512),
+               "c150_h8": (2, 8, 5, 150, 32, 10),
+               "edges_ignored": (2, 4, 3, 19, 32, 6)}
+
+
+def _sums_inputs(case, device, seed):
+    shape = SUMS_SHAPES[case]
+    logits, label = _inputs(shape, device, seed)
+    if case == "edges_ignored":
+        f2 = shape[4] // shape[1] // 2
+        label[:, :f2] = 255
+        label[:, -f2:] = 255
+    return rc.width_interp(logits, shape[5]), label, shape[4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SUMS_SHAPES))
+def test_sums_match_plain(cuda, case):
+    """K1: loss sum within 1e-5 relative and the valid count equal, each
+    on its own; one launch counted."""
+    mid, label, H = _sums_inputs(case, cuda, seed=2)
+    before = rc.LAUNCHES["resize_ce_fwd"]
+    ls, ws = rc.resize_ce_sums(mid, label, H)
+    rls, rws = rc.resize_ce_sums_reference(mid, label, H)
+    assert float(ws) == float(rws) == float((label != 255).sum())
+    assert abs(float(ls) - float(rls)) <= 1e-5 * float(rls)
+    assert rc.LAUNCHES["resize_ce_fwd"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["vit_decode", "c150_h8", "flagship"])
+def test_sums_are_deterministic(cuda, case):
+    """K1 launched twice on the same inputs gives the same bits: each block
+    adds its threads in a fixed order and the last block adds the blocks in
+    index order."""
+    if case == "flagship":
+        logits, label = _inputs(SHAPES[3], cuda, seed=4)
+        mid, H = rc.width_interp(logits, 1024), 512
+    else:
+        mid, label, H = _sums_inputs(case, cuda, seed=4)
+    first = torch.stack(rc.resize_ce_sums(mid, label, H))
+    assert torch.equal(first, torch.stack(rc.resize_ce_sums(mid, label, H)))
+
+
+@pytest.mark.gpu
+def test_sums_on_two_streams(cuda):
+    """K1 on two streams at once (each has its own workspace and ticket)
+    gives the bits it gives on the default stream."""
+    shapes = (SHAPES[3], SHAPES[4])
+    ins = []
+    for i, shape in enumerate(shapes):
+        logits, label = _inputs(shape, cuda, seed=5 + i)
+        ins.append((rc.width_interp(logits, shape[5]), label, shape[4]))
+    want = [torch.stack(rc.resize_ce_sums(*x)) for x in ins]
+    streams = [torch.cuda.Stream() for _ in shapes]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        for s, x in zip(streams, ins):
+            with torch.cuda.stream(s):
+                got.append(torch.stack(rc.resize_ce_sums(*x)))
+    torch.cuda.synchronize()
+    for i, g in enumerate(got):
+        assert torch.equal(g, want[i % 2])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_matches_plain(cuda, dtype):

@@ -7,8 +7,10 @@ end. Both are held against ``gaiaseg_tpu`` ``fused_resize_ce(...,
 interpret=True)`` at the shapes of tests/test_resize_ce.py, and at the
 shapes the CUDA backward special-cases: 150 classes (its any-C instance)
 with h = 3 (one tile spans every mid row), and row factors 4, 16 and 32 (1,
-2 and 4 output rows per row lane and interval). The CUDA
-kernels themselves are held against the plain versions by
+2 and 4 output rows per row lane and interval). K1's plain version is also
+held against the JAX ``_sums`` alone (loss sum and valid count, each on its
+own), there and with both edge intervals ignored. The CUDA kernels
+themselves are held against the plain versions by
 tests/test_torch_kernels_gpu.py (skipped without a card) and by
 chip_smoke.py.
 """
@@ -101,6 +103,35 @@ def test_loss_and_grad_match_jax_at_kernel_edge_shapes(case):
     assert abs(float(loss) - float(j_loss)) <= 1e-5 * abs(float(j_loss))
     assert grad.shape == j_grad.shape
     assert np.abs(grad.numpy() - j_grad).max() <= 1e-4 * np.abs(j_grad).max()
+
+
+# K1's cases: the shapes above, one whose two edge intervals (the first and
+# last f/2 label rows, where both taps fall on one mid row) are ignored, and
+# 150 classes over 8 mid rows
+SUMS_CASES = {**KERNEL_EDGE_SHAPES, "edges_ignored": (2, 4, 3, 19, 32, 6),
+              "c150_h8": (1, 8, 5, 150, 32, 10)}
+
+
+@pytest.mark.parametrize("case", sorted(SUMS_CASES))
+def test_sums_match_jax(case):
+    """K1's plain version after the width interpolation against the JAX
+    ``_sums(..., interpret=True)`` (the Pallas ``_fwd_kernel``): the loss
+    sum within 1e-5 relative (float32 sums in another order) and the valid
+    count exactly, each on its own."""
+    shape = SUMS_CASES[case]
+    n, h, w, c, H, W = shape
+    logits, lab = _rand(*shape, seed=5)
+    if case == "edges_ignored":
+        f2 = H // h // 2
+        lab[:, :f2] = 255
+        lab[:, H - f2:] = 255
+    j_loss, j_count, _ = jrc._sums(jnp.asarray(logits), jnp.asarray(lab),
+                                   (H, W), 255, True)
+    mid = rc.width_interp(
+        torch.from_numpy(logits.transpose(0, 3, 1, 2).copy()), W)
+    loss, count = rc.resize_ce_sums_reference(mid, torch.from_numpy(lab), H)
+    assert float(count) == float(j_count) == float((lab != 255).sum())
+    assert abs(float(loss) - float(j_loss)) <= 1e-5 * abs(float(j_loss))
 
 
 def test_grad_mid_reference_is_the_adjoint_of_the_sums():
