@@ -25,14 +25,28 @@ Phases, each printing its own lines; any failure exits non-zero:
 5. train    8 full-width iterations of the flagship supernet config
             (``configs/local_examples/train_supernet/pspnet_ar50to101v2_
             gsync.py``), one sandwich cycle, bf16 autocast, synthetic
-            512x1024 data, batch 8; K1 and K2 must each launch twice per
+            512x1024 records kept on the card (``device_cache``) through
+            the config's train pipeline (Resize
+            to img_scale with ratio 0.5-2, RandomCrop 512x1024 with
+            cat_max_ratio 0.75, flip, photometric distortion, on the card,
+            prefetched), batch 8; K1 and K2 must each launch twice per
             iteration (decode and aux loss). Then the identical cycle again
             for warm step times, one profiled MAX step (device time by
             kernel, idle share), and the least time of each step over three
             warm cycles (the host's clock spreads; the minimum does not).
-6. eval     whole-mode ``simple_test`` at the val anchors R50/R77/R101 on
-            two synthetic 1024x2048 images, confusion-matrix mIoU.
-7. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
+6. data     the data pipeline at full width: 32 synthetic records of
+            Cityscapes' 1024x2048 packed into a .gsegpack; the card's
+            ``augment_batch`` of 8 of them against the CPU's with the same
+            drawn parameters (labels equal, image within 2e-5); the
+            augment's and the upload's device ms per batch; then one
+            flagship sandwich cycle (8 iterations, batch 8) from the packed
+            file and one from the device cache, each cold and again warm:
+            finite losses, the sandwich sequence, K1 and K2 16 launches
+            each; device and wall img/s, data_ms, peak memory per route.
+7. eval     whole-mode ``simple_test`` at the val anchors R50/R77/R101 on
+            two synthetic 1024x2048 images, read through the loader and
+            the prefetch thread, confusion-matrix mIoU.
+8. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
             (``flash_bwd_dq``) against their plain torch versions at the ViT
             shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025, 200
             (ragged tails), 1088 (a half-empty last 128-row block), 64 (one
@@ -41,18 +55,20 @@ Phases, each printing its own lines; any failure exits non-zero:
             beside the plain version, SDPA and the bound, K3 beside SDPA's
             forward and the port's whole attention backward
             (``attention_di`` + K4 + K5) beside SDPA's backward, in turns.
-8. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
+9. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
             the flash kernels equal the dense attention route (bf16, a
             batch of 8); two planted faults in dq (zeroed, halved) must
             fail that check.
-9. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
+10. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
             UPerNet supernet (``configs/_dynamic_/models/upernet_elastic_
             vit.py`` with ``with_cls_token=False``, so the flash gate opens)
-            at full width, synthetic 512x512 data, batch 8, AdamW + clip;
+            at full width, synthetic 512x512 records kept on the card
+            through ADE20K's train pipeline (512x512 crops), batch 8, AdamW
+            + clip;
             K3-K5 must each launch once per active layer, K1/K2 twice per
             iteration. Then the cycle again for warm times, a profiled
             MAX step, and the least step times over three warm cycles.
-10. vit_eval  whole-mode eval at the val anchors MIN and MAX on four
+11. vit_eval  whole-mode eval at the val anchors MIN and MAX on four
             synthetic 512x512 images; K3 launches once per active layer per
             forward.
 
@@ -78,8 +94,8 @@ FLAGSHIP = os.path.join(REPO, "configs", "local_examples", "train_supernet",
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
                    "upernet_elastic_vit.py")
-PHASES = ("device", "build", "kernels", "segmentor", "train", "eval",
-          "flash_kernels", "vit_segmentor", "vit_train", "vit_eval")
+PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
+          "eval", "flash_kernels", "vit_segmentor", "vit_train", "vit_eval")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
 REPO_KERNELS = ("fwd_tile", "fwd_tile_any", "bwd_tile", "bwd_tile_any",
@@ -90,6 +106,13 @@ NO_SPILL = {"resize_ce": ("fwd_tile", "fwd_tile_any", "bwd_tile",
                           "bwd_tile_any"),
             "flash_attention": ("fwd_wgmma", "bwd_dkv_wgmma", "bwd_dq_wgmma")}
 VIT_ITERS = 4     # one sandwich cycle: MAX, MIN, 2 random
+ADE20K = os.path.join(REPO, "configs", "_dynamic_", "datasets", "ade20k.py")
+# the data phase: Cityscapes-sized synthetic records packed into a file, the
+# flagship pipeline (1024x2048 -> 512x1024 crops), batch 8
+DATA_RECORDS, DATA_SIZE, DATA_BATCH = 32, (1024, 2048), 8
+DATA_CACHE_GB = 1.0       # device_cache budget, above the file's 0.27 GB
+AUG_ATOL = 2e-5           # card vs CPU augment, normalized image (the CPU
+                          # parity tests' tolerance against JAX)
 # images of the flash-vs-dense check: the train step's batch. The worst
 # tensors are the PSP branches pooled to 1x1 .. 3x3, where one ReLU that
 # flips between the routes moves 1 / (positions x images) of a gradient: at 2
@@ -610,9 +633,11 @@ def _flagship_cfg():
     from gaiaseg_tpu_torch.utils import Config
     cfg = Config.fromfile(FLAGSHIP)
     cfg.merge_from_dict({
+        # kept on the card: the step's readings carry no host-side
+        # generation of synthetic records (phase data reads a file)
         "data.train": {"type": "SyntheticDataset", "size": [512, 1024],
                        "length": 16, "num_classes": 19, "seed": 0,
-                       "cells": 8},
+                       "cells": 8, "device_cache": True},
         "data.samples_per_gpu": 8,
         "cudnn_benchmark": False,
     })
@@ -734,10 +759,173 @@ def phase_train(ctx):
         f"{r['arch']} {r['step_ms']:.1f}" for r in warm))
     cold, hot = t["cold_img_per_s"], t["warm_img_per_s"]
     print(f"[train] device step img/s over the cycle: first {cold:.2f}, "
-          f"warm {hot:.2f}; warm with host data "
+          f"warm {hot:.2f}; warm with the data wait "
           f"{t['warm_wall_img_per_s']:.2f}; on {ctx['nvidia_smi']}; peak "
           f"memory {t['peak_mem_gb']:.2f} GB")
     t.update(_steady_step_ms(model, cfg, warm, "train"))
+
+
+def _data_route(model, cfg, tag):
+    """Two identical sandwich cycles of the flagship from ``cfg``'s train
+    data: the first cold with its launch counts, then the warm one."""
+    import torch
+    from gaiaseg_tpu_torch.engine import train_segmentor
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    cold = train_segmentor(model, cfg, device="cuda", max_iters=8, seed=0,
+                           log=lambda s: print(f"[data] {tag} {s}"))
+    launches = dict(LAUNCHES)
+    warm = train_segmentor(model, cfg, device="cuda", max_iters=8, seed=0)
+    names = [r["arch"] for r in cold]
+    check(names == ["MAX", "MIN", "R101", "R77", "R50"] + ["random"] * 3,
+          f"data {tag}: arch sequence {names}")
+    check(all(math.isfinite(r["loss"]) for r in cold + warm),
+          f"data {tag}: non-finite loss in "
+          f"{[r['loss'] for r in cold + warm]}")
+    for k in ("resize_ce_fwd", "resize_ce_bwd"):
+        check(launches[k] == 16, f"data {tag}: {k} launched {launches[k]} "
+              "times in the 8-iteration cycle (want 16)")
+    data_ms = sorted(r["data_ms"] for r in warm)
+    step_s = sum(r["step_ms"] for r in warm) / 1e3
+    wall_s = step_s + sum(data_ms) / 1e3
+    out = {"launches": launches, "cold_history": cold, "warm_history": warm,
+           "device_img_per_s": DATA_BATCH * len(warm) / step_s,
+           "wall_img_per_s": DATA_BATCH * len(warm) / wall_s,
+           "data_ms_median": data_ms[len(data_ms) // 2],
+           "data_ms_max": data_ms[-1],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[data] {tag}: warm cycle device {out['device_img_per_s']:.2f} "
+          f"img/s, wall with the data wait {out['wall_img_per_s']:.2f} img/s;"
+          f" data_ms median {out['data_ms_median']:.2f}, largest "
+          f"{out['data_ms_max']:.2f}; peak memory {out['peak_mem_gb']:.2f} "
+          f"GB; launches {launches}")
+    return out
+
+
+def _cuda_ms(fn, reps=10, warmup=2) -> float:
+    """Mean ms of ``fn`` on the current stream (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_data(ctx):
+    """The data pipeline at full width: Cityscapes-sized records in a
+    .gsegpack, the card's augment against the CPU's, one flagship sandwich
+    cycle from the file and one from the device cache."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from gaiaseg_tpu_torch.data import (PackedDataset, SyntheticDataset,
+                                        pack_dataset, parse_train_pipeline)
+    from gaiaseg_tpu_torch.data import transforms as tf
+    from gaiaseg_tpu_torch.data.staging import DeviceFeed
+    from gaiaseg_tpu_torch.engine.train import base_scale_of
+    tmp = tempfile.mkdtemp(prefix="gseg_data_")
+    try:
+        path = os.path.join(tmp, "cityscapes_synthetic.gsegpack")
+        t0 = time.perf_counter()
+        pack_dataset(SyntheticDataset(length=DATA_RECORDS, size=DATA_SIZE,
+                                      num_classes=19, seed=0, cells=8), path)
+        pack_s = time.perf_counter() - t0
+        ds = PackedDataset(path)
+        print(f"[data] packed {len(ds)} records {ds.h}x{ds.w} "
+              f"({os.path.getsize(path) / 1e6:.1f} MB) in {pack_s:.1f}s")
+        cfg = _flagship_cfg()
+        cfg.merge_from_dict({"data.train": {"type": "PackedDataset",
+                                            "path": path,
+                                            "device_cache": False},
+                             "data.samples_per_gpu": DATA_BATCH})
+        train_cfg = cfg["data"]["train"]
+        pipe = parse_train_pipeline(train_cfg["pipeline"])
+        base = base_scale_of(pipe, ds)
+        check(base == 1.0 and tuple(pipe.crop_size) == (512, 1024)
+              and pipe.cat_max_ratio == 0.75 and pipe.photometric,
+              f"data: flagship pipeline {pipe} (base scale {base})")
+
+        # the card's augment against the CPU's, same records and parameters
+        batch = ds.read_batch(np.arange(DATA_BATCH))
+        params = tf.draw_augment_params(
+            torch.Generator().manual_seed(0), DATA_BATCH,
+            tuple(r * base for r in pipe.ratio_range), pipe.flip_prob)
+        kw = dict(crop_size=tuple(pipe.crop_size),
+                  cat_max_ratio=pipe.cat_max_ratio, num_classes=19,
+                  photometric=True)
+        img, gt = torch.from_numpy(batch["img"]), torch.from_numpy(batch["gt"])
+        t0 = time.perf_counter()
+        want = tf.augment_batch(img, gt, params, pipe.mean, pipe.std,
+                                dtype=torch.float32, **kw)
+        cpu_s = time.perf_counter() - t0
+        dimg, dgt = img.cuda(), gt.cuda()
+        dparams = tf.params_to(params, "cuda")
+        got = tf.augment_batch(dimg, dgt, dparams, pipe.mean, pipe.std,
+                               dtype=torch.float32, **kw)
+        err = float((got["img"].cpu() - want["img"]).abs().max())
+        labels_equal = torch.equal(got["gt"].cpu(), want["gt"])
+        print(f"[data] augment of {DATA_BATCH} records 1024x2048 -> 512x1024:"
+              f" card vs CPU labels equal {labels_equal}, image max|d| "
+              f"{err:.2e} (tolerance {AUG_ATOL}); CPU {cpu_s:.2f}s")
+        check(labels_equal and err <= AUG_ATOL,
+              f"data: card augment vs CPU: labels equal {labels_equal}, "
+              f"image max|d| {err:.2e}")
+
+        # the augment's device time and the upload's, per batch
+        mean = torch.tensor(pipe.mean, device="cuda")
+        std = torch.tensor(pipe.std, device="cuda")
+        aug_ms = _cuda_ms(lambda: tf.augment_batch(dimg, dgt, dparams, mean,
+                                                   std, **kw))
+        idx = torch.arange(DATA_BATCH, device="cuda")
+        gather_ms = _cuda_ms(lambda: tf.gather_augment_batch(
+            dimg, dgt, idx, dparams, mean, std, **kw))
+        nbytes = batch["img"].nbytes + batch["gt"].nbytes
+        pinned = [torch.from_numpy(batch[k]).pin_memory()
+                  for k in ("img", "gt")]
+        on_card = [torch.empty_like(t, device="cuda") for t in pinned]
+        h2d_ms = _cuda_ms(lambda: [d.copy_(h, non_blocking=True)
+                                   for d, h in zip(on_card, pinned)])
+        feed = DeviceFeed("cuda")
+        host = {"img": batch["img"], "gt": batch["gt"]}
+        stage = []
+        for _ in range(5):      # host copy into the pinned ring + the upload
+            t0 = time.perf_counter()
+            with feed.side_stream():
+                feed.upload(host)
+            feed.stream.synchronize()
+            stage.append((time.perf_counter() - t0) * 1e3)
+        stage_ms = sorted(stage)[len(stage) // 2]
+        print(f"[data] per batch of {DATA_BATCH}: augment {aug_ms:.3f} ms "
+              f"(from the cache in place {gather_ms:.3f} ms); upload of "
+              f"{nbytes / 1e6:.1f} MB from pinned memory {h2d_ms:.3f} ms "
+              f"({nbytes / h2d_ms / 1e6:.2f} GB/s), with the host's copy "
+              f"into the pinned ring {stage_ms:.3f} ms (host clock, median "
+              f"of 5); on {ctx['nvidia_smi']}")
+
+        model = ctx.get("model") or _build_model(cfg)
+        torch.backends.cudnn.benchmark = bool(cfg.get("cudnn_benchmark"))
+        routes = {"packed": _data_route(model, cfg, "packed")}
+        cfg.merge_from_dict({"data.train.device_cache": DATA_CACHE_GB})
+        routes["cached"] = _data_route(model, cfg, "cached")
+        ctx["data"] = {"records": DATA_RECORDS, "size": list(DATA_SIZE),
+                       "batch": DATA_BATCH, "pack_seconds": pack_s,
+                       "file_mb": os.path.getsize(path) / 1e6,
+                       "augment_card_vs_cpu_max_abs": err,
+                       "augment_ms": aug_ms, "gather_augment_ms": gather_ms,
+                       "upload_ms": h2d_ms, "staged_upload_ms": stage_ms,
+                       "upload_bytes": nbytes,
+                       "routes": routes}
+        del ds
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _profile_max_step(model, cfg, warm, tag):
@@ -851,13 +1039,16 @@ def phase_eval(ctx):
 def _vit_cfg():
     from gaiaseg_tpu_torch.utils import Config
     cfg = Config.fromfile(VIT)
+    ade = Config.fromfile(ADE20K)
     cfg.merge_from_dict({
         # the flash gate needs N % 128 == 0: 32x32 patches of a 512x512
         # crop are 1024 tokens, 1025 with the cls token
         "model.backbone.with_cls_token": False,
+        # ADE20K's train pipeline (512x512 crops; 19-class synthetic data)
         "data.train": {"type": "SyntheticDataset", "size": [512, 512],
                        "length": 16, "num_classes": 19, "seed": 0,
-                       "cells": 8},
+                       "cells": 8, "pipeline": ade["train_pipeline"],
+                       "device_cache": True},
         "data.samples_per_gpu": 8,
         "img_norm_cfg": {"mean": [123.675, 116.28, 103.53],
                          "std": [58.395, 57.12, 57.375], "to_rgb": True},
@@ -1036,7 +1227,7 @@ def phase_vit_train(ctx):
         f"{r['arch']} {r['step_ms']:.1f}" for r in warm))
     print(f"[vit_train] device step img/s over the cycle: first "
           f"{t['cold_img_per_s']:.2f}, warm {t['warm_img_per_s']:.2f}; warm "
-          f"with host data {t['warm_wall_img_per_s']:.2f}; on "
+          f"with the data wait {t['warm_wall_img_per_s']:.2f}; on "
           f"{ctx['nvidia_smi']}; peak memory {t['peak_mem_gb']:.2f} GB")
     t.update(_steady_step_ms(model, cfg, warm, "vit_train"))
 
@@ -1158,7 +1349,7 @@ def main(argv) -> int:
         print(f"chip_smoke: the port package is missing beside this file "
               f"({e})", file=sys.stderr)
         return 1
-    for path in (FLAGSHIP, VIT):
+    for path in (FLAGSHIP, VIT, ADE20K):
         if not os.path.isfile(path):
             print(f"chip_smoke: config missing: {path}", file=sys.stderr)
             return 1
@@ -1196,6 +1387,7 @@ def main(argv) -> int:
                    "vit_train": ctx.get("vit_train"),
                    "vit_profile": ctx.get("vit_profile"),
                    "vit_eval": ctx.get("vit_eval"),
+                   "data": ctx.get("data"),
                    "kernels": line["kernels"]}, f, indent=2, default=str)
     print(json.dumps(line))
     print(ctx["nvidia_smi"])

@@ -11,7 +11,9 @@ and keeps its own copies of the JAX-free host code it needs.
 - ``models``: DynamicResNet, PSP/FCN heads, CE loss, the segmentor.
 - ``engine``: SGD + poly LR, the supernet train step and loop, weight
   conversion from the JAX package's variables.
-- ``data``: the synthetic dataset and the confusion-matrix mIoU.
+- ``data``, ``native``: file, packed (a C++ mmap reader) and device-cached
+  datasets, the loader and prefetch feed, the train pipeline's
+  augmentation on the device, the confusion-matrix mIoU.
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,10 @@
 Port of ``gaiaseg_tpu/engine/train.py``: per iteration one arch from the
 sandwich sampler, the LR schedule set on the host, one optimizer step (SGD
 or AdamW, with the config's global-norm gradient clip) of
-``forward_train``, losses logged.
+``forward_train``, losses logged. The batches come as in the JAX loop: a
+``BatchLoader`` in the JAX package's order, the config's train pipeline
+applied on the device (``data/transforms.py``) by a prefetch thread, and
+epoch-based schedules resolved against the dataset's length.
 
 The step has the semantics of the JAX ``make_train_step(update_stats=True)``
 (``engine/train.py:72``): BN running stats update on EVERY step (torch BN in
@@ -19,20 +22,23 @@ reach it), so weight decay and momentum move all of them as optax does.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..archspace.samplers import build_model_sampler
 from ..data.datasets import build_dataset
+from ..data.device_cache import DeviceCachedDataset
+from ..data.loader import BatchLoader, device_prefetch
+from ..data.pipeline_cfg import parse_train_pipeline
+from ..data.staging import DeviceFeed, take
+from ..data.transforms import (augment_batch, draw_augment_params,
+                               gather_augment_batch)
 from ..models.arch_util import encode_arch, model_max_arch
 from ..utils.device import resolve_device
 from .optim import build_lr_schedule, build_optimizer, clip_grad_norm, \
     grad_clip_norm, scale_lr, set_learning_rate
-
-DEFAULT_NORM = dict(mean=[123.675, 116.28, 103.53],
-                    std=[58.395, 57.12, 57.375])
 
 
 def configure_numerics() -> Dict[str, bool]:
@@ -96,13 +102,113 @@ def _max_iters(cfg) -> int:
     return int(runner.get("max_epochs", 1)) * 1000
 
 
-def _batches(dataset, batch_size: int, seed: int) -> Iterator[List[Dict]]:
-    """Shuffled, drop-last, endless batches of samples."""
-    rng = np.random.RandomState(seed)
-    while True:
-        order = rng.permutation(len(dataset))
-        for i in range(0, len(order) - batch_size + 1, batch_size):
-            yield [dataset[int(k)] for k in order[i:i + batch_size]]
+def resolve_epoch_schedule(cfg, n_samples: int, global_batch: int):
+    """mmcv EpochBasedRunner semantics -> this loop's iter domain (a copy
+    of ``gaiaseg_tpu/engine/train.py:389``).
+
+    The reference fast-finetune schedules are written in epochs
+    (schedule_ft1x.py: step=[9,12] epochs, warmup_by_epoch,
+    total_epochs=13; schedule_all_42e.py: step=[32,38,41],
+    total_epochs=42). Returns (max_iters, lr_config) with epoch counts
+    scaled by iters-per-epoch, or (None, lr_config) when the config is
+    already iter-based (runner.max_iters / total_iters present or no
+    epoch count given).
+    """
+    runner = cfg.get("runner") or {}
+    epochs = cfg.get("total_epochs") or runner.get("max_epochs")
+    lrc = dict(cfg.get("lr_config") or {})
+    if not epochs or runner.get("max_iters") or cfg.get("total_iters"):
+        return None, lrc
+    ipe = max(int(n_samples) // max(int(global_batch), 1), 1)
+    if lrc.get("by_epoch", True) and \
+            str(lrc.get("policy", "")).lower() == "step":
+        lrc["step"] = [int(s) * ipe for s in lrc.get("step", [])]
+        lrc["by_epoch"] = False
+    if lrc.pop("warmup_by_epoch", False):
+        lrc["warmup_iters"] = int(lrc.get("warmup_iters", 1)) * ipe
+    return int(epochs) * ipe, lrc
+
+
+def base_scale_of(pipe, dataset) -> float:
+    """The factor of ``Resize(img_scale, keep_ratio)`` that maps the
+    dataset's native size onto ``img_scale`` (1 for Cityscapes at
+    (2048, 1024)); the ratio range multiplies it."""
+    if pipe.img_scale is None or len(dataset) == 0:
+        return 1.0
+    h, w = dataset[0]["img"].shape[:2]
+    tw, th = pipe.img_scale  # mmcv (w, h)
+    return min(max(th, tw) / max(h, w), min(th, tw) / min(h, w))
+
+
+def make_train_feed(dataset, pipe, batch_size: int, num_classes: int,
+                    device: torch.device, seed: int = 0, depth: int = 4):
+    """The loop's batches: ``(img, gt, event)`` items (``staging.take``
+    hands them to the consumer's stream), prepared ``depth`` ahead by a
+    prefetch thread. The records come from a
+    ``BatchLoader`` (shuffled by epoch, drop_last, infinite, in the JAX
+    package's order); the thread draws each batch's augmentation
+    parameters from a CPU generator seeded by ``seed`` (in batch order, so
+    the draws do not depend on timing), uploads the records as uint8
+    (labels too when ``num_classes <= 255``) and runs ``augment_batch`` on
+    the device. A device-cached dataset is read in place
+    (``gather_augment_batch``): only indices and parameters are uploaded.
+    On the card the augment is captured as a CUDA graph at the first batch
+    and replayed for the others (fixed shapes: the loader drops the
+    tail), so the thread launches a few operations a batch, not the
+    augment's ~200, while the train step launches its own.
+    bf16 images on the card, float32 on the CPU."""
+    cache = dataset if isinstance(dataset, DeviceCachedDataset) else None
+    loader = BatchLoader(dataset, batch_size, shuffle=True, seed=seed,
+                         drop_last=True, infinite=True,
+                         index_only=cache is not None)
+    base = base_scale_of(pipe, dataset)
+    ratio_range = (pipe.ratio_range[0] * base, pipe.ratio_range[1] * base)
+    feed = DeviceFeed(device)
+    gen = torch.Generator().manual_seed(seed)
+    norm, graph = {}, {}
+    kw = dict(crop_size=tuple(pipe.crop_size),
+              cat_max_ratio=pipe.cat_max_ratio, num_classes=num_classes,
+              photometric=pipe.photometric, seg_pad_val=pipe.seg_pad_val,
+              dtype=torch.bfloat16 if device.type == "cuda"
+              else torch.float32)
+
+    def augment(dev):
+        if cache is not None:
+            return gather_augment_batch(cache.imgs, cache.gts, dev["idx"],
+                                        dev, norm["mean"], norm["std"], **kw)
+        return augment_batch(dev["img"], dev["gt"], dev, norm["mean"],
+                             norm["std"], **kw)
+
+    def prep(batch):
+        params = draw_augment_params(gen, len(batch["idx"]), ratio_range,
+                                     pipe.flip_prob)
+        if cache is not None:
+            arrays = {"idx": np.asarray(batch["idx"], np.int64), **params}
+        else:
+            gt = np.asarray(batch["gt"])
+            if gt.dtype != np.uint8 and num_classes <= 255:
+                gt = gt.astype(np.uint8)
+            arrays = {"img": np.asarray(batch["img"]), "gt": gt, **params}
+        with feed.side_stream():
+            if not norm:        # made once, on the stream that reads them
+                norm.update(mean=torch.tensor(pipe.mean, device=device),
+                            std=torch.tensor(pipe.std, device=device))
+            if not feed.cuda:
+                out = augment(feed.upload(arrays))
+                return out["img"], out["gt"], None
+            if not graph:       # the first batch: warm, then capture
+                static = feed.upload(arrays)
+                augment(static)
+                graph.update(zip(("graph", "out"),
+                                 feed.capture(lambda: augment(static))),
+                             static=static)
+            else:
+                feed.upload(arrays, out=graph["static"])
+            graph["graph"].replay()
+            out = graph["out"]
+            return out["img"].clone(), out["gt"].clone(), feed.done()
+
+    return device_prefetch(iter(loader), prep, depth=depth)
 
 
 def train_segmentor(model, cfg, *, device="cuda", train_dataset=None,
@@ -111,51 +217,62 @@ def train_segmentor(model, cfg, *, device="cuda", train_dataset=None,
                     log: Optional[Callable[[str], None]] = None
                     ) -> List[Dict[str, Any]]:
     """Train ``model`` per ``cfg``; returns one record per iteration:
-    arch name, losses, lr, host data ms and the synchronized step ms."""
+    arch name, losses, lr, ``data_ms`` (how long the loop waited for the
+    next batch: the prefetch queue, then the batch's device work) and the
+    synchronized ``step_ms``."""
     device = resolve_device(device)
     model.to(device).train()
     data_cfg = cfg.get("data") or {}
     if train_dataset is None:
-        train_dataset = build_dataset(data_cfg["train"])
+        train_dataset = build_dataset(data_cfg["train"], device=device)
     if train_sampler is None and cfg.get("train_sampler"):
         train_sampler = build_model_sampler(cfg["train_sampler"])
+    pipe = parse_train_pipeline((data_cfg.get("train") or {})
+                                .get("pipeline"))
     batch_size = int(data_cfg.get("samples_per_gpu", 2))
-    max_iters = max_iters or _max_iters(cfg)
+    epoch_iters, lr_config = resolve_epoch_schedule(
+        cfg, len(train_dataset), batch_size)
+    max_iters = max_iters or epoch_iters or _max_iters(cfg)
 
     opt_cfg = dict(cfg.get("optimizer") or {"type": "SGD", "lr": 0.01})
     opt_cfg["lr"] = scale_lr(opt_cfg.get("lr", 0.01), batch_size,
                              cfg.get("lr_scaler"))
-    schedule = build_lr_schedule(cfg.get("lr_config"), opt_cfg["lr"],
-                                 max_iters)
+    schedule = build_lr_schedule(lr_config, opt_cfg["lr"], max_iters)
     optimizer = build_optimizer(model.parameters(), opt_cfg)
     max_norm = grad_clip_norm(cfg.get("optimizer_config"))
     max_arch = model_max_arch(cfg["model"])
-    norm = dict(cfg.get("img_norm_cfg") or DEFAULT_NORM)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    batches = _batches(train_dataset, batch_size, seed)
+    batches = make_train_feed(train_dataset, pipe, batch_size,
+                              model.num_classes, device, seed,
+                              int(cfg.get("device_prefetch", 4)))
 
     history = []
-    for it in range(max_iters):
-        t0 = time.perf_counter()
-        img, gt = prepare_batch(next(batches), norm, device)
-        meta = train_sampler.sample() if train_sampler is not None else {}
-        arch = encode_arch(max_arch, meta)
-        lr = schedule(it)
-        set_learning_rate(optimizer, lr)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        logs = train_step(model, optimizer, img, gt, arch, generator,
-                          max_norm)
-        vals = {k: float(v) for k, v in logs.items()}   # syncs the step
-        t2 = time.perf_counter()
-        rec = {"iter": it + 1, "arch": meta.get("name", "random"),
-               "lr": lr, **vals, "data_ms": (t1 - t0) * 1e3,
-               "step_ms": (t2 - t1) * 1e3}
-        history.append(rec)
-        if log is not None:
-            log(f"iter {it + 1}/{max_iters} arch={rec['arch']} "
-                f"loss={vals['loss']:.4f} lr={lr:.3e} "
-                f"step={rec['step_ms']:.1f}ms data={rec['data_ms']:.1f}ms")
+    try:
+        for it in range(max_iters):
+            t0 = time.perf_counter()
+            img, gt, ready = next(batches)
+            take((img, gt), ready)
+            meta = train_sampler.sample() if train_sampler is not None \
+                else {}
+            arch = encode_arch(max_arch, meta)
+            lr = schedule(it)
+            set_learning_rate(optimizer, lr)
+            t1 = time.perf_counter()
+            logs = train_step(model, optimizer, img, gt, arch, generator,
+                              max_norm)
+            vals = {k: float(v) for k, v in logs.items()}  # syncs the step
+            t2 = time.perf_counter()
+            del img, gt
+            rec = {"iter": it + 1, "arch": meta.get("name", "random"),
+                   "lr": lr, **vals, "data_ms": (t1 - t0) * 1e3,
+                   "step_ms": (t2 - t1) * 1e3}
+            history.append(rec)
+            if log is not None:
+                log(f"iter {it + 1}/{max_iters} arch={rec['arch']} "
+                    f"loss={vals['loss']:.4f} lr={lr:.3e} "
+                    f"step={rec['step_ms']:.1f}ms "
+                    f"data={rec['data_ms']:.1f}ms")
+    finally:
+        batches.close()     # stops the prefetch thread, drops staged batches
     return history

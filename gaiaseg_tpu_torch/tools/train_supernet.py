@@ -1,14 +1,20 @@
 #!/usr/bin/env python
 """Supernet training CLI of the port (one GPU).
 
-    python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG \
-        --cfg-options data.train.type=SyntheticDataset --max-iters 8
+    python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG --max-iters 8
+    # a packed file (gaiaseg_tpu_torch.tools.pack_dataset), kept on the card
+    python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG --cfg-options \
+        data.train.type=PackedDataset data.train.path=train.gsegpack \
+        data.train.device_cache=true
 
 Loads the config (``_base_`` merging, ``--cfg-options`` dot-key overrides),
 builds the segmentor and the train sampler, runs ``train_segmentor`` and
-writes ``history.json`` into ``--work-dir``. The train data must be
-``SyntheticDataset`` until the port's data-pipeline slice lands; a file
-dataset raises. Runs on ``cuda`` unless ``--device cpu`` is given.
+writes ``history.json`` into ``--work-dir``. The train data is the config's
+``data.train``: a file dataset (Cityscapes, ADE20K, custom directories), a
+``PackedDataset``, or ``SyntheticDataset``; ``device_cache`` stages it on
+the card when it fits the budget. The config's train pipeline runs on the
+card. Runs on ``cuda`` unless ``--device cpu`` is given; the device is
+resolved before anything else, so a missing card fails first.
 """
 from __future__ import annotations
 

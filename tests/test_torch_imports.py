@@ -45,6 +45,17 @@ VIT_MODULES = {
 }
 
 
+# modules of the data-pipeline slice
+DATA_MODULES = {
+    "gaiaseg_tpu_torch.data.datasets", "gaiaseg_tpu_torch.data.device_cache",
+    "gaiaseg_tpu_torch.data.loader", "gaiaseg_tpu_torch.data.metrics",
+    "gaiaseg_tpu_torch.data.packed", "gaiaseg_tpu_torch.data.pipeline_cfg",
+    "gaiaseg_tpu_torch.data.staging", "gaiaseg_tpu_torch.data.transforms",
+    "gaiaseg_tpu_torch.native", "gaiaseg_tpu_torch.native.build",
+    "gaiaseg_tpu_torch.tools.pack_dataset",
+}
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          capture_output=True, text=True, timeout=300,
@@ -52,7 +63,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.split(" ", 1)
     names = set(names.split(","))
-    assert len(names) >= 30 and VIT_MODULES <= names, VIT_MODULES - names
+    assert len(names) >= 30 and VIT_MODULES | DATA_MODULES <= names, \
+        (VIT_MODULES | DATA_MODULES) - names
     assert bad.strip() == "[]", bad
 
 
@@ -81,6 +93,27 @@ def _entry_evaluate():
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="cuda"):
         entry()
+
+
+def test_train_raises_without_cuda_before_it_touches_the_dataset(
+        no_cuda, monkeypatch):
+    """The flagship's Cityscapes root is missing here; the CLI and the loop
+    must fail on the card first, without building a dataset."""
+    from gaiaseg_tpu_torch.data import datasets
+    from gaiaseg_tpu_torch.engine import train
+    from gaiaseg_tpu_torch.tools import train_supernet
+    from gaiaseg_tpu_torch.utils import Config
+
+    def touched(*args, **kw):
+        raise AssertionError("the dataset was built before the device")
+
+    monkeypatch.setattr(datasets.DATASETS, "build", touched)
+    monkeypatch.setattr(train, "build_dataset", touched)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_supernet.main([FLAGSHIP, "--max-iters", "1"])
+    cfg = Config.fromfile(FLAGSHIP).to_dict()
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.train_segmentor(torch.nn.Linear(1, 1), cfg, device="cuda")
 
 
 def _run_smoke(cwd, env_extra):

@@ -283,3 +283,84 @@ def test_flash_wrappers_raise_on_bad_input(cuda):
         fa.flash_fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):        # mixed dtypes
         fa.flash_fwd(q, k.float(), v)
+
+
+# --------------------------------------------------------------------- #
+# the data pipeline on the card (plain PyTorch ops, no repo kernel)
+# --------------------------------------------------------------------- #
+from gaiaseg_tpu_torch.data import transforms as tf  # noqa: E402
+
+NORM_MEAN = (123.675, 116.28, 103.53)
+NORM_STD = (58.395, 57.12, 57.375)
+
+
+def _records(n, h, w, seed):
+    rng = np.random.RandomState(seed)
+    img = rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8)
+    lab = np.kron(rng.randint(0, 19, (n, 4, 4)),
+                  np.ones((1, h // 4, w // 4), np.int64)).astype(np.uint8)
+    lab[:, :3] = 255
+    return torch.from_numpy(img), torch.from_numpy(lab)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [False, True])
+def test_augment_batch_on_the_card_matches_the_cpu(cuda, cache):
+    """The flagship pipeline's parameters at a quarter of its size: labels
+    equal, the float32 image within the CPU parity tolerance (2e-5,
+    normalized), the bf16 image the float32 one rounded."""
+    img, lab = _records(4, 256, 512, seed=1)
+    params = tf.draw_augment_params(torch.Generator().manual_seed(2), 4,
+                                    (0.5, 2.0), 0.5)
+    kw = dict(crop_size=(128, 256), cat_max_ratio=0.75, num_classes=19)
+    want = tf.augment_batch(img, lab, params, NORM_MEAN, NORM_STD,
+                            dtype=torch.float32, **kw)
+    dev = tf.params_to(params, cuda)
+    if cache:
+        idx = torch.arange(4, device=cuda)
+        got = tf.gather_augment_batch(img.to(cuda), lab.to(cuda), idx, dev,
+                                      NORM_MEAN, NORM_STD,
+                                      dtype=torch.float32, **kw)
+    else:
+        got = tf.augment_batch(img.to(cuda), lab.to(cuda), dev, NORM_MEAN,
+                               NORM_STD, dtype=torch.float32, **kw)
+    assert torch.equal(got["gt"].cpu(), want["gt"])
+    assert float((got["img"].cpu() - want["img"]).abs().max()) <= 2e-5
+    bf = tf.augment_batch(img.to(cuda), lab.to(cuda), dev, NORM_MEAN,
+                          NORM_STD, **kw)
+    assert bf["img"].dtype == torch.bfloat16
+    assert torch.equal(bf["img"], got["img"].to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_prefetch_on_a_side_stream_matches_the_cpu_feed(cuda):
+    """``make_train_feed`` on the card (uploads and augment on a side
+    stream, pinned ring of 2 buffers, depth 3) yields the CPU feed's
+    batches, each still intact after the consumer's stream has run other
+    work that allocates and frees (the caching allocator must not reuse a
+    batch the consumer owns)."""
+    from gaiaseg_tpu_torch.data import SyntheticDataset, \
+        parse_train_pipeline
+    from gaiaseg_tpu_torch.data.staging import take
+    from gaiaseg_tpu_torch.engine.train import make_train_feed
+    pipe = parse_train_pipeline([
+        dict(type="Resize", img_scale=(256, 128), ratio_range=(0.5, 2.0)),
+        dict(type="RandomCrop", crop_size=(64, 128), cat_max_ratio=0.75),
+        dict(type="RandomFlip", prob=0.5), dict(type="PhotoMetricDistortion")])
+    ds = SyntheticDataset(length=10, size=(128, 256), num_classes=19)
+    cpu = make_train_feed(ds, pipe, 4, 19, torch.device("cpu"), seed=1)
+    card = make_train_feed(ds, pipe, 4, 19, cuda, seed=1, depth=3)
+    try:
+        for _ in range(6):
+            img, gt, ready = next(card)
+            take((img, gt), ready)
+            want_img, want_gt, _ = next(cpu)
+            for _ in range(3):        # churn the consumer stream's pool
+                torch.randn(4, 3, 64, 128, device=cuda).mul_(2).sum()
+            assert torch.equal(gt.cpu(), want_gt)
+            # bf16 of the card's float32 (within 2e-5 of the CPU's)
+            err = (img.float().cpu() - want_img).abs()
+            assert bool((err <= 2e-5 + want_img.abs() * 2 ** -8).all())
+    finally:
+        card.close()
+        cpu.close()
