@@ -43,10 +43,21 @@ Phases, each printing its own lines; any failure exits non-zero:
             file and one from the device cache, each cold and again warm:
             finite losses, the sandwich sequence, K1 and K2 16 launches
             each; device and wall img/s, data_ms, peak memory per route.
-7. eval     whole-mode ``simple_test`` at the val anchors R50/R77/R101 on
-            two synthetic 1024x2048 images, read through the loader and
-            the prefetch thread, confusion-matrix mIoU.
-8. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
+7. eval     ``evaluate`` (whole mode, the flagship's test_cfg) at the val
+            anchors R50/R77/R101 on two synthetic 1024x2048 images, read
+            through the loader and the prefetch thread, confusion-matrix
+            mIoU.
+8. loop     the flagship workflow around the step at full width: 16
+            iterations at log interval 8 (silent steps between), the val
+            workflow [('train', 8), ('val', 1)] on two 1024x2048 records,
+            BN calibration and a checkpoint at 8 and 16, the cross-arch eval
+            at 16; K1 2 x 16 + 2 x 2 launches, K2 2 x 16; a fresh model
+            resumed from iter_8.pth bit-equal to the file (weights, BN
+            statistics, momentum) and run on to 16 at the same LRs; then
+            ``tools/test_supernet.py`` on iter_16.pth (the val anchors and
+            two draws, --vmap 5 --bn-calibrate 2), its last subnet equal to
+            ``evaluate`` alone on the statistics calibration gives it.
+9. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
             (``flash_bwd_dq``) against their plain torch versions at the ViT
             shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025, 200
             (ragged tails), 1088 (a half-empty last 128-row block), 64 (one
@@ -55,11 +66,11 @@ Phases, each printing its own lines; any failure exits non-zero:
             beside the plain version, SDPA and the bound, K3 beside SDPA's
             forward and the port's whole attention backward
             (``attention_di`` + K4 + K5) beside SDPA's backward, in turns.
-9. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
+10. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
             the flash kernels equal the dense attention route (bf16, a
             batch of 8); two planted faults in dq (zeroed, halved) must
             fail that check.
-10. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
+11. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
             UPerNet supernet (``configs/_dynamic_/models/upernet_elastic_
             vit.py`` with ``with_cls_token=False``, so the flash gate opens)
             at full width, synthetic 512x512 records kept on the card
@@ -68,9 +79,17 @@ Phases, each printing its own lines; any failure exits non-zero:
             K3-K5 must each launch once per active layer, K1/K2 twice per
             iteration. Then the cycle again for warm times, a profiled
             MAX step, and the least step times over three warm cycles.
-11. vit_eval  whole-mode eval at the val anchors MIN and MAX on four
-            synthetic 512x512 images; K3 launches once per active layer per
-            forward.
+12. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
+            of four synthetic 512x1024 images, one forward an image) at the
+            val anchors MIN and MAX, then flip, multi-scale (0.75, 1.0) and
+            whole runs at MAX, seconds an image each; flash_fwd launches
+            once a layer a forward, K4/K5 never. Then the slide logits
+            (float32, flash off) within 1e-4 of max|ref| of a slide built
+            from each window's whole inference.
+
+The train phases (``train``, ``data``, ``vit_train``) run at log interval
+1: every step is a full step (BN statistics updated) and synchronized, so
+its time is the step's.
 
 It then prints the ``kernels`` JSON line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Details go to
@@ -95,7 +114,8 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
                    "upernet_elastic_vit.py")
 PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
-          "eval", "flash_kernels", "vit_segmentor", "vit_train", "vit_eval")
+          "eval", "loop", "flash_kernels", "vit_segmentor", "vit_train",
+          "vit_eval")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
 REPO_KERNELS = ("fwd_tile", "fwd_tile_any", "bwd_tile", "bwd_tile_any",
@@ -640,6 +660,8 @@ def _flagship_cfg():
                        "cells": 8, "device_cache": True},
         "data.samples_per_gpu": 8,
         "cudnn_benchmark": False,
+        # every step a full, synchronized one: each row is one step
+        "log_config.interval": 1,
     })
     return cfg
 
@@ -698,7 +720,7 @@ def _steady_step_ms(model, cfg, warm, tag):
     the minimum is what the card and this process need."""
     from gaiaseg_tpu_torch.engine import train_segmentor
     cycles = [warm] + [train_segmentor(model, cfg, device="cuda",
-                                       max_iters=len(warm), seed=0)
+                                       max_iters=len(warm), seed=0)[1]["loss"]
                        for _ in range(STEADY_CYCLES - 1)]
     best = [min(c[i]["step_ms"] for c in cycles) for i in range(len(warm))]
     rate = 8 * len(best) / (sum(best) / 1e3)
@@ -723,7 +745,8 @@ def phase_train(ctx):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     history = train_segmentor(model, cfg, device="cuda", max_iters=8,
-                              seed=0, log=lambda s: print(f"[train] {s}"))
+                              seed=0, log=lambda s: print(f"[train] {s}")
+                              )[1]["loss"]
     launches = dict(LAUNCHES)
     ctx["launches"] = launches
     ctx["model"] = model
@@ -739,7 +762,8 @@ def phase_train(ctx):
               "iterations (want 2 per iteration)")
     # the identical cycle again (same seed: same archs, same batches) with
     # cuDNN's per-shape set-up done: the warm step times
-    warm = train_segmentor(model, cfg, device="cuda", max_iters=8, seed=0)
+    warm = train_segmentor(model, cfg, device="cuda", max_iters=8,
+                           seed=0)[1]["loss"]
     ctx["train_warm"] = warm
 
     def img_per_s(hist, key):
@@ -774,9 +798,11 @@ def _data_route(model, cfg, tag):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     cold = train_segmentor(model, cfg, device="cuda", max_iters=8, seed=0,
-                           log=lambda s: print(f"[data] {tag} {s}"))
+                           log=lambda s: print(f"[data] {tag} {s}")
+                           )[1]["loss"]
     launches = dict(LAUNCHES)
-    warm = train_segmentor(model, cfg, device="cuda", max_iters=8, seed=0)
+    warm = train_segmentor(model, cfg, device="cuda", max_iters=8,
+                           seed=0)[1]["loss"]
     names = [r["arch"] for r in cold]
     check(names == ["MAX", "MIN", "R101", "R77", "R50"] + ["random"] * 3,
           f"data {tag}: arch sequence {names}")
@@ -999,11 +1025,24 @@ def _profile_max_step(model, cfg, warm, tag):
     return out
 
 
+def _test_params(cfg):
+    """The Normalize mean and std of the config's test pipeline (the ViT's
+    model-only config has none: its ``img_norm_cfg``)."""
+    from gaiaseg_tpu_torch.data import (TestPipelineParams,
+                                        parse_test_pipeline)
+    val = (cfg.get("data") or {}).get("val")
+    if val and val.get("pipeline"):
+        return parse_test_pipeline(val["pipeline"])
+    norm = cfg["img_norm_cfg"]
+    return TestPipelineParams(mean=tuple(norm["mean"]),
+                              std=tuple(norm["std"]))
+
+
 def phase_eval(ctx):
     import torch
     from gaiaseg_tpu_torch.archspace import build_model_sampler
     from gaiaseg_tpu_torch.data import SyntheticDataset
-    from gaiaseg_tpu_torch.engine import evaluate_arch
+    from gaiaseg_tpu_torch.engine import evaluate
     from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
     from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
     cfg = ctx.get("cfg") or _flagship_cfg()
@@ -1011,13 +1050,15 @@ def phase_eval(ctx):
     ds = SyntheticDataset(length=2, size=(1024, 2048), num_classes=19,
                           seed=1, cells=8)
     max_arch = model_max_arch(cfg["model"])
+    test_params = _test_params(cfg)
     reset_launches()
     results = {}
     for meta in build_model_sampler(cfg["val_sampler"]).traverse():
         arch = encode_arch(max_arch, meta)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = evaluate_arch(model, ds, arch, cfg["img_norm_cfg"], "cuda")
+        res = evaluate(model, ds, arch, test_params=test_params,
+                       device="cuda")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         check(math.isfinite(res["mIoU"]) and 0.0 <= res["mIoU"] <= 1.0,
@@ -1032,7 +1073,215 @@ def phase_eval(ctx):
     check(tuple(pred.shape) == (1, 1024, 2048), f"eval: shape {pred.shape}")
     ctx["eval"] = results
     ctx["eval_launches"] = dict(LAUNCHES)   # whole inference runs no kernel
-    ctx.pop("model", None)                  # free the card for the ViT
+    ctx.pop("model", None)                  # free the card for the loop
+
+
+# the loop phase: the flagship workflow around the step
+LOOP_ITERS, LOOP_LOG, LOOP_CKPT, LOOP_EVAL = 16, 8, 8, 16
+LOOP_VAL_RECORDS, LOOP_SUBNETS, LOOP_CALIB = 2, 5, 2
+
+
+def _loop_cfg():
+    """The flagship config at log interval 8 (silent steps between), a
+    checkpoint every 8 iterations, the cross-arch eval at 16 and the val
+    workflow [('train', 8), ('val', 1)]; val data: synthetic 1024x2048
+    records through the config's test pipeline."""
+    cfg = _flagship_cfg()
+    cfg.merge_from_dict({
+        "data.val": {"type": "SyntheticDataset", "size": [1024, 2048],
+                     "length": LOOP_VAL_RECORDS, "num_classes": 19,
+                     "seed": 1, "cells": 8},
+        "runner.max_iters": LOOP_ITERS,
+        "log_config.interval": LOOP_LOG,
+        "checkpoint_config.interval": LOOP_CKPT,
+        "evaluation.interval": LOOP_EVAL,
+        "workflow": [["train", LOOP_CKPT], ["val", 1]],
+    })
+    return cfg
+
+
+def _seconds(lines, pattern):
+    return [float(m.group(1)) for m in map(re.compile(pattern).search, lines)
+            if m]
+
+
+def _cpu_state(sd):
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def phase_loop(ctx):
+    """The flagship supernet workflow around the step at full width:
+    16 iterations with silent steps, two checkpoints (BN calibrated), the
+    val workflow, the cross-arch eval; a resume from the first checkpoint;
+    then test_supernet on the last one."""
+    import shutil
+    import tempfile
+    import torch
+    from gaiaseg_tpu_torch.archspace import build_model_sampler
+    from gaiaseg_tpu_torch.data import build_dataset
+    from gaiaseg_tpu_torch.engine import (calibrate_bn, evaluate,
+                                          init_segmentor, train_segmentor)
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from gaiaseg_tpu_torch.tools import test_supernet
+    cfg = _loop_cfg()
+    torch.backends.cudnn.benchmark = False
+    tmp = tempfile.mkdtemp(prefix="gseg_loop_")
+    out = ctx["loop"] = {}
+    try:
+        wd = os.path.join(tmp, "run")
+        lines = []
+
+        def log(msg):
+            lines.append(msg)
+            print(f"[loop] {msg}")
+
+        model = _build_model(cfg)
+        reset_launches()
+        t0 = time.perf_counter()
+        state, _ = train_segmentor(model, cfg, work_dir=wd, device="cuda",
+                                   seed=0, log=log)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        launches = out["launches"] = dict(LAUNCHES)
+        ckpts = {n: os.path.join(wd, f"iter_{n}.pth")
+                 for n in range(LOOP_CKPT, LOOP_ITERS + 1, LOOP_CKPT)}
+        latest = os.path.join(wd, "latest.pth")
+        check(state.step == LOOP_ITERS
+              and all(os.path.isfile(p) for p in ckpts.values())
+              and os.path.islink(latest) and os.path.realpath(latest)
+              == os.path.realpath(ckpts[LOOP_ITERS]),
+              f"loop: step {state.step}, files {sorted(os.listdir(wd))}")
+        with open(os.path.join(wd, "history.json")) as f:
+            hist = json.load(f)
+        out["history"] = hist
+        anchors = [m["name"] for m in
+                   build_model_sampler(cfg["val_sampler"]).traverse()]
+        check(len(hist["loss"]) == LOOP_ITERS // LOOP_LOG
+              and all(math.isfinite(r["loss"]) for r in hist["loss"]),
+              f"loop: loss windows {hist['loss']}")
+        check(len(hist["val_loss"]) == LOOP_ITERS // LOOP_CKPT
+              and all(math.isfinite(r["loss"]) for r in hist["val_loss"]),
+              f"loop: val_loss rows {hist['val_loss']}")
+        check(len(hist["eval"]) == 1
+              and sorted(hist["eval"][0]["metrics"]) == sorted(anchors)
+              and all(math.isfinite(m["mIoU"]) for m in
+                      hist["eval"][0]["metrics"].values()),
+              f"loop: eval rows {hist['eval']}")
+        n_val = LOOP_ITERS // LOOP_CKPT
+        want = {"resize_ce_fwd": 2 * LOOP_ITERS + 2 * n_val,
+                "resize_ce_bwd": 2 * LOOP_ITERS}
+        check(all(launches[k] == v for k, v in want.items()),
+              f"loop: launches {launches}, want {want} (decode + aux each "
+              f"train step, K1 alone in each of the {n_val} val batches)")
+        calib_s = _seconds(lines, r"calibrated BN .* in ([\d.]+)s")
+        save = [(float(m.group(1)), float(m.group(2))) for m in map(
+            re.compile(r"saved .* \(([\d.]+) MB\) in ([\d.]+)s").search,
+            lines) if m]
+        check(len(calib_s) == len(ckpts) and len(save) == len(ckpts),
+              f"loop: {len(calib_s)} calibrations and {len(save)} "
+              f"checkpoint writes for {len(ckpts)} checkpoints")
+        out.update(calibrate_seconds=calib_s, checkpoint_mb_seconds=save,
+                   eval_seconds={k: v["seconds"] for k, v in
+                                 hist["eval"][0]["metrics"].items()})
+        print(f"[loop] {LOOP_ITERS} iterations in {out['seconds']:.1f}s: "
+              f"BN calibration ({cfg['data']['samples_per_gpu']} x 8 "
+              "records 512x1024 at MAX) " + ", ".join(
+                  f"{x:.2f}s" for x in calib_s) + "; checkpoint writes "
+              + ", ".join(f"{mb:.1f} MB in {x:.2f}s" for mb, x in save)
+              + "; cross-arch eval on 2 images 1024x2048: " + ", ".join(
+                  f"{k} {v:.2f}s" for k, v in out["eval_seconds"].items())
+              + f"; on {ctx['nvidia_smi']}")
+        del model, state
+        torch.cuda.empty_cache()
+
+        # resume from the first checkpoint: a fresh model (other weights)
+        # comes back with what was saved, then goes on to the end
+        saved = torch.load(ckpts[LOOP_CKPT], map_location="cpu",
+                           weights_only=False)
+        torch.manual_seed(1)
+        from gaiaseg_tpu_torch.models import build_segmentor
+        fresh = build_segmentor(cfg["model"]).cuda()
+        wd2 = os.path.join(tmp, "resumed")
+        back, _ = train_segmentor(fresh, cfg, work_dir=wd2, device="cuda",
+                                  seed=0, resume_from=ckpts[LOOP_CKPT],
+                                  max_iters=LOOP_CKPT)
+        sd = _cpu_state(fresh.state_dict())
+        mom = [_cpu_state(st)["momentum_buffer"] for st in
+               back.optimizer.state_dict()["state"].values()]
+        mom_saved = [st["momentum_buffer"] for st in
+                     saved["optimizer"]["state"].values()]
+        check(back.step == LOOP_CKPT and set(sd) == set(saved["state_dict"])
+              and all(torch.equal(sd[k], v)
+                      for k, v in saved["state_dict"].items())
+              and len(mom) == len(mom_saved) > 0
+              and all(torch.equal(a, b) for a, b in zip(mom, mom_saved)),
+              "loop: the resumed model's weights, BN statistics or momentum "
+              "differ from the checkpoint's")
+        del saved
+        _, hist2 = train_segmentor(fresh, cfg, work_dir=wd2, device="cuda",
+                                   seed=0, resume_from=ckpts[LOOP_CKPT],
+                                   log=lambda s: print(f"[loop] resumed {s}"))
+        lrs = [r["lr"] for r in hist2["loss"]]
+        want_lrs = [r["lr"] for r in hist["loss"] if r["iter"] > LOOP_CKPT]
+        check(lrs == want_lrs and hist2["loss"][-1]["iter"] == LOOP_ITERS,
+              f"loop: resumed LRs {lrs}, unbroken {want_lrs}")
+        print(f"[loop] resumed from iter_{LOOP_CKPT}.pth: weights, BN "
+              f"statistics and {len(mom)} momentum buffers bit-equal to the "
+              f"file; ran to {LOOP_ITERS} at the unbroken run's LRs {lrs}")
+        del fresh, back
+        shutil.rmtree(wd2, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # test_supernet on the last checkpoint: the val anchors and two
+        # draws of the train sampler, 5 subnets a pass, BN calibrated
+        sampler = build_model_sampler(cfg["train_sampler"])
+        draws = [sampler.sample() for _ in range(8)][5:7]
+        space = list(build_model_sampler(cfg["val_sampler"]).traverse()) \
+            + draws
+        space_path = os.path.join(tmp, "space.json")
+        with open(space_path, "w") as f:
+            json.dump(space, f)
+        opts = [f"data.{k}={json.dumps(cfg['data'][k])}"
+                for k in ("train", "val")]
+        t0 = time.perf_counter()
+        rows = test_supernet.main([
+            FLAGSHIP, ckpts[LOOP_ITERS], "--model-space", space_path,
+            "--work-dir", os.path.join(tmp, "ts"),
+            "--vmap", str(LOOP_SUBNETS), "--bn-calibrate", str(LOOP_CALIB),
+            "--cfg-options", *opts])
+        torch.cuda.synchronize()
+        ts_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "ts", "test_supernet",
+                               "metrics.json")) as f:
+            written = json.load(f)
+        mious = [r["metric"]["metric"]["mIoU"] for r in written]
+        check(len(written) == len(space) == LOOP_SUBNETS == len(rows)
+              and all(math.isfinite(x) for x in mious),
+              f"loop: test_supernet wrote {len(written)} rows, mIoU {mious}")
+        # the last subnet (a random draw) scored alone on the statistics
+        # calibration gives it
+        seg = init_segmentor(cfg, ckpts[LOOP_ITERS], device="cuda")
+        arch = seg.arch(written[-1])
+        tp = _test_params(cfg)
+        calibrate_bn(seg.model, build_dataset(cfg["data"]["train"], "cuda"),
+                     arch, num_batches=LOOP_CALIB, test_params=tp)
+        alone = evaluate(seg.model, build_dataset(cfg["data"]["val"], "cuda"),
+                         arch, test_params=tp, device="cuda")
+        got = written[-1]["metric"]["metric"]
+        check(all(got[k] == alone[k] for k in ("mIoU", "mAcc", "aAcc")),
+              f"loop: test_supernet --vmap gave {got}, evaluate alone "
+              f"{ {k: alone[k] for k in ('mIoU', 'mAcc', 'aAcc')} }")
+        out["test_supernet"] = {"seconds": ts_s, "mIoU": mious}
+        print(f"[loop] test_supernet --vmap {LOOP_SUBNETS} --bn-calibrate "
+              f"{LOOP_CALIB} on iter_{LOOP_ITERS}.pth: {len(written)} "
+              f"subnets in {ts_s:.1f}s, mIoU "
+              + " ".join(f"{x:.4f}" for x in mious)
+              + f"; the last one scored alone: mIoU {alone['mIoU']:.4f} "
+              "(equal)")
+        del seg
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # --------------------------------------------------------------------- #
@@ -1052,7 +1301,7 @@ def _vit_cfg():
         "data.samples_per_gpu": 8,
         "img_norm_cfg": {"mean": [123.675, 116.28, 103.53],
                          "std": [58.395, 57.12, 57.375], "to_rgb": True},
-        "model.test_cfg.mode": "whole",   # slide inference waits
+        "log_config.interval": 1,
     })
     return cfg
 
@@ -1189,7 +1438,8 @@ def phase_vit_train(ctx):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     history = train_segmentor(model, cfg, device="cuda", max_iters=VIT_ITERS,
-                              seed=0, log=lambda s: print(f"[vit_train] {s}"))
+                              seed=0, log=lambda s: print(f"[vit_train] {s}")
+                              )[1]["loss"]
     launches = dict(LAUNCHES)
     ctx["vit_launches"] = launches
     names = [r["arch"] for r in history]
@@ -1207,7 +1457,7 @@ def phase_vit_train(ctx):
               f"vit_train: {k} launched {launches[k]} times in "
               f"{len(history)} iterations (want 2 per iteration)")
     warm = train_segmentor(model, cfg, device="cuda", max_iters=VIT_ITERS,
-                           seed=0)
+                           seed=0)[1]["loss"]
 
     def img_per_s(hist):
         return 8 * len(hist) / (sum(r["step_ms"] for r in hist) / 1e3)
@@ -1232,40 +1482,114 @@ def phase_vit_train(ctx):
     t.update(_steady_step_ms(model, cfg, warm, "vit_train"))
 
 
+VIT_EVAL_SIZE = (512, 1024)   # crop 512, stride 341: 1 x 3 windows
+VIT_EVAL_RECORDS = 4
+VIT_EVAL_RATIOS = (0.75, 1.0)
+SLIDE_RTOL = 1e-4   # batched windows vs one forward a window, float32
+
+
+def _windows(h, w, crop, stride):
+    """mmseg's slide grid, written out again for the check."""
+    out = []
+    for i in range(max(h - crop[0] + stride[0] - 1, 0) // stride[0] + 1):
+        for j in range(max(w - crop[1] + stride[1] - 1, 0) // stride[1] + 1):
+            y0 = min(i * stride[0], h - crop[0])
+            x0 = min(j * stride[1], w - crop[1])
+            out.append((y0, x0))
+    return out
+
+
 def phase_vit_eval(ctx):
+    """The ViT's eval in its config's slide mode (crop 512, stride 341) at
+    the val anchors, then whole, flip and multi-scale runs at MAX; flash_fwd
+    launches once a layer a forward, K4/K5 never. Then the slide logits
+    (float32, flash off) against a slide built here from whole inference
+    of each window."""
     import torch
     from gaiaseg_tpu_torch.archspace import build_model_sampler
-    from gaiaseg_tpu_torch.data import SyntheticDataset
-    from gaiaseg_tpu_torch.engine import evaluate_arch
+    from gaiaseg_tpu_torch.data import SyntheticDataset, TestPipelineParams
+    from gaiaseg_tpu_torch.engine import evaluate, prepare_batch
     from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
     from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
     cfg = ctx.get("vit_cfg") or _vit_cfg()
     model = (ctx.get("vit_model") or _build_model(cfg)).eval()
-    ds = SyntheticDataset(length=4, size=(512, 512), num_classes=19, seed=1,
-                          cells=8)
+    crop = tuple(model.test_cfg["crop_size"])
+    stride = tuple(model.test_cfg["stride"])
+    n_win = len(_windows(*VIT_EVAL_SIZE, crop, stride))
+    check(model.test_cfg.get("mode") == "slide" and n_win == 3,
+          f"vit_eval: test_cfg {model.test_cfg}, {n_win} windows")
+    ds = SyntheticDataset(length=VIT_EVAL_RECORDS, size=VIT_EVAL_SIZE,
+                          num_classes=19, seed=1, cells=8)
     max_arch = model_max_arch(cfg["model"])
+    tp = _test_params(cfg)
     results = {}
-    for meta in build_model_sampler(cfg["val_sampler"]).traverse():
-        arch = encode_arch(max_arch, meta)
+
+    def run(tag, arch, forwards, test_params=tp, flip=False):
         depth = arch["backbone"]["encoder"]["depth"]
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = evaluate_arch(model, ds, arch, cfg["img_norm_cfg"], "cuda")
+        res = evaluate(model, ds, arch, test_params=test_params, flip=flip)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         check(math.isfinite(res["mIoU"]) and 0.0 <= res["mIoU"] <= 1.0,
-              f"vit_eval {meta['name']}: mIoU {res['mIoU']}")
-        check(launches["flash_fwd"] == depth * len(ds)
+              f"vit_eval {tag}: mIoU {res['mIoU']}")
+        want = depth * forwards * len(ds)
+        check(launches["flash_fwd"] == want
               and launches["flash_bwd_dkv"] == launches["flash_bwd_dq"] == 0,
-              f"vit_eval {meta['name']}: launches {launches}, want flash_fwd "
-              f"{depth} per forward x {len(ds)} images and no backward")
-        results[meta["name"]] = {"mIoU": res["mIoU"], "aAcc": res["aAcc"],
-                                 "seconds": dt, "launches": launches}
-        print(f"[vit_eval] {meta['name']}: mIoU {res['mIoU']:.4f} aAcc "
-              f"{res['aAcc']:.4f} on {len(ds)} images 512x512 in {dt:.2f}s; "
-              f"flash_fwd {launches['flash_fwd']} launches (depth {depth})")
+              f"vit_eval {tag}: launches {launches}, want flash_fwd {depth} "
+              f"a forward x {forwards} forwards x {len(ds)} images and no "
+              "backward")
+        results[tag] = {"mIoU": res["mIoU"], "aAcc": res["aAcc"],
+                        "seconds": dt, "seconds_per_image": dt / len(ds),
+                        "launches": launches}
+        print(f"[vit_eval] {tag}: mIoU {res['mIoU']:.4f} aAcc "
+              f"{res['aAcc']:.4f} on {len(ds)} images "
+              f"{VIT_EVAL_SIZE[0]}x{VIT_EVAL_SIZE[1]}: {dt / len(ds):.3f} s an"
+              f" image; flash_fwd {launches['flash_fwd']} launches (depth "
+              f"{depth})")
+
+    for meta in build_model_sampler(cfg["val_sampler"]).traverse():
+        run(f"slide {meta['name']}", encode_arch(max_arch, meta), 1)
+    arch = encode_arch(max_arch)
+    run("slide flip MAX", arch, 2, flip=True)
+    run("slide multi-scale MAX", arch, len(VIT_EVAL_RATIOS),
+        TestPipelineParams(mean=tp.mean, std=tp.std,
+                           img_ratios=VIT_EVAL_RATIOS))
+    slide_cfg = model.test_cfg
+    model.test_cfg = {"mode": "whole"}
+    try:
+        run("whole MAX", arch, 1)
+    finally:
+        model.test_cfg = slide_cfg
+
+    # the slide accumulation at full size: float32, flash off
+    _set_flash(model, False)
+    try:
+        img, _ = prepare_batch([ds[0]], cfg["img_norm_cfg"], "cuda")
+        with torch.no_grad():
+            got = model.slide_inference(img, arch, crop, stride)
+            h, w = VIT_EVAL_SIZE
+            want = torch.zeros_like(got, dtype=torch.float64)
+            count = torch.zeros(1, 1, h, w, dtype=torch.float64,
+                                device="cuda")
+            for y0, x0 in _windows(h, w, crop, stride):
+                part = model.whole_inference(
+                    img[:, :, y0:y0 + crop[0], x0:x0 + crop[1]], arch)
+                want[:, :, y0:y0 + crop[0], x0:x0 + crop[1]] += part
+                count[:, :, y0:y0 + crop[0], x0:x0 + crop[1]] += 1
+            want = want / count
+    finally:
+        _set_flash(model, True)
+    err, scale = _max_abs(got, want), float(want.abs().max())
+    results["slide_vs_windows"] = {"max_abs": err, "max_ref": scale}
+    print(f"[vit_eval] slide logits (3 windows in one forward, float32) vs "
+          f"the windows' whole inference, averaged here: max|d| {err:.2e} "
+          f"(max|ref| {scale:.2e}, tolerance {SLIDE_RTOL} of it)")
+    check(got.dtype == torch.float32 and err <= SLIDE_RTOL * scale,
+          f"vit_eval: slide vs windows max|d| {err:.2e}, max|ref| "
+          f"{scale:.2e}")
     ctx["vit_eval"] = results
 
 
@@ -1377,7 +1701,7 @@ def main(argv) -> int:
                    "flash_checks": ctx.get("flash_checks"),
                    "launches": ctx.get("launches"),
                    "train": ctx.get("train"), "profile": ctx.get("profile"),
-                   "eval": ctx.get("eval"),
+                   "eval": ctx.get("eval"), "loop": ctx.get("loop"),
                    "flash_timings": ctx.get("flash_timings"),
                    "flash_forward": ctx.get("flash_forward"),
                    "flash_backward": ctx.get("flash_backward"),

@@ -1,18 +1,16 @@
-"""Supernet training: the train step and a short loop.
+"""Supernet training: the train step and the loop around it.
 
 Port of ``gaiaseg_tpu/engine/train.py``: per iteration one arch from the
 sandwich sampler, the LR schedule set on the host, one optimizer step (SGD
 or AdamW, with the config's global-norm gradient clip) of
-``forward_train``, losses logged. The batches come as in the JAX loop: a
-``BatchLoader`` in the JAX package's order, the config's train pipeline
-applied on the device (``data/transforms.py``) by a prefetch thread, and
-epoch-based schedules resolved against the dataset's length.
-
-The step has the semantics of the JAX ``make_train_step(update_stats=True)``
-(``engine/train.py:72``): BN running stats update on EVERY step (torch BN in
-train mode). The JAX hot loop instead takes "silent" steps that leave them
-alone and recalibrates before eval; that choice comes back with the port's
-BN-calibration slice.
+``forward_train``. The batches come as in the JAX loop: a ``BatchLoader``
+in the JAX package's order, the config's train pipeline applied on the
+device (``data/transforms.py``) by a prefetch thread, and epoch-based
+schedules resolved against the dataset's length. Around the step, as in
+JAX: silent steps between log boundaries (BN statistics left alone, no
+read-back), log windows, the two-phase val workflow, BN calibration before
+checkpoints and evals, ``.pth`` checkpoints with resume, and the in-loop
+cross-arch eval.
 
 Numerics on the card follow the JAX model: bf16 compute with float32
 parameters (``torch.autocast`` on CUDA), float32 on the CPU. Every
@@ -21,8 +19,13 @@ reach it), so weight decay and momentum move all of them as optax does.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import json
+import os
+import os.path as osp
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,30 +34,20 @@ from ..archspace.samplers import build_model_sampler
 from ..data.datasets import build_dataset
 from ..data.device_cache import DeviceCachedDataset
 from ..data.loader import BatchLoader, device_prefetch
-from ..data.pipeline_cfg import parse_train_pipeline
+from ..data.pipeline_cfg import parse_test_pipeline, parse_train_pipeline
 from ..data.staging import DeviceFeed, take
 from ..data.transforms import (augment_batch, draw_augment_params,
-                               gather_augment_batch)
+                               gather_augment_batch, prepare_eval_batch)
 from ..models.arch_util import encode_arch, model_max_arch
+from ..ops.dynamic_layers import frozen_bn_stats
 from ..utils.device import resolve_device
+from .calibrate import bn_stats, calibrate_bn, load_bn_stats
+from .checkpoint import (latest_checkpoint, load_checkpoint, save_checkpoint,
+                         update_latest)
+from .evaluate import cross_arch_evaluate
+from .numerics import autocast, configure_numerics  # noqa: F401
 from .optim import build_lr_schedule, build_optimizer, clip_grad_norm, \
     grad_clip_norm, scale_lr, set_learning_rate
-
-
-def configure_numerics() -> Dict[str, bool]:
-    """float32 matmuls and convs in full float32 (no TF32): the loss's width
-    interpolation stays exact; convs run in bf16 under autocast anyway."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
-
-
-def autocast(device: torch.device):
-    """bf16 autocast on CUDA (the JAX model's ``dtype=bfloat16``); a no-op
-    on the CPU, where the port computes in float32."""
-    return torch.autocast(device.type, dtype=torch.bfloat16,
-                          enabled=device.type == "cuda")
 
 
 def prepare_batch(samples: Sequence[Dict[str, np.ndarray]],
@@ -74,13 +67,18 @@ def prepare_batch(samples: Sequence[Dict[str, np.ndarray]],
 def train_step(model, optimizer: torch.optim.Optimizer, img: torch.Tensor,
                gt: torch.Tensor, arch: Dict[str, Any],
                generator: Optional[torch.Generator] = None,
-               max_norm: Optional[float] = None) -> Dict[str, torch.Tensor]:
+               max_norm: Optional[float] = None,
+               update_stats: bool = True) -> Dict[str, torch.Tensor]:
     """One optimizer step of ``model.forward_train`` at ``arch`` (the model
     is in train mode), the gradients first clipped to the global norm
     ``max_norm`` when it is given. Returns the detached losses (and the
-    gradient norm before clipping)."""
+    gradient norm before clipping); nothing is read back to the host.
+    ``update_stats=False`` is the JAX silent step: BN normalizes with the
+    batch statistics as always, and no running statistic changes."""
     optimizer.zero_grad(set_to_none=False)
-    with autocast(img.device):
+    stats = contextlib.nullcontext() if update_stats \
+        else frozen_bn_stats(model)
+    with stats, autocast(img.device):
         total, logs = model.forward_train(img, gt, arch, generator)
     total.backward()
     for p in model.parameters():
@@ -211,24 +209,97 @@ def make_train_feed(dataset, pipe, batch_size: int, num_classes: int,
     return device_prefetch(iter(loader), prep, depth=depth)
 
 
-def train_segmentor(model, cfg, *, device="cuda", train_dataset=None,
-                    train_sampler=None, max_iters: Optional[int] = None,
-                    seed: int = 0,
+@dataclasses.dataclass
+class TrainState:
+    """What ``train_segmentor`` trained: the model (weights and BN
+    statistics), its optimizer and the number of iterations done."""
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int
+
+
+def _loop_intervals(cfg, silent_steps: bool):
+    """(checkpoint interval, eval interval, BN-calibration batches before a
+    checkpoint, before an eval): JAX ``engine/train.py:575-580, 620-621``.
+    Whenever the loop takes silent steps, both calibrate 8 batches at the
+    MAX anchor unless ``{checkpoint_config,evaluation}.calibrate_bn`` says
+    otherwise (0 turns it off)."""
+    ckpt_cfg = dict(cfg.get("checkpoint_config") or {})
+    eval_cfg = dict(cfg.get("evaluation") or {})
+    default = 8 if silent_steps else 0
+    ck, ev = ckpt_cfg.get("calibrate_bn"), eval_cfg.get("calibrate_bn")
+    return (int(ckpt_cfg.get("interval", 8000)),
+            int(eval_cfg.get("interval", 8000)),
+            default if ck is None else int(ck),
+            default if ev is None else int(ev))
+
+
+def _json_default(obj):
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    return float(obj)
+
+
+def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
+                    device="cuda", train_dataset=None, val_dataset=None,
+                    train_sampler=None, val_sampler=None,
+                    max_iters: Optional[int] = None, seed: int = 0,
+                    resume_from: Optional[str] = None,
+                    load_from: Optional[str] = None,
                     log: Optional[Callable[[str], None]] = None
-                    ) -> List[Dict[str, Any]]:
-    """Train ``model`` per ``cfg``; returns one record per iteration:
-    arch name, losses, lr, ``data_ms`` (how long the loop waited for the
-    next batch: the prefetch queue, then the batch's device work) and the
-    synchronized ``step_ms``."""
+                    ) -> Tuple[TrainState, Dict[str, List[Dict[str, Any]]]]:
+    """Train ``model`` per ``cfg`` (JAX ``engine/train.py:431-1034``, one
+    step per dispatch); returns ``(state, history)``.
+
+    - Resume: ``resume_from``, or ``auto_resume`` with a ``latest.pth`` in
+      ``work_dir``, restores weights, BN statistics, the optimizer and the
+      iteration; ``load_from`` only the weights. As in JAX the data order,
+      the sampler and the dropout generator restart from ``seed``.
+    - Steps: a full step (BN statistics updated) when ``(it + 1) %
+      log_config.interval == 0``, a silent one otherwise. The host reads the
+      device once per log window: ``history["loss"]`` gets one row per
+      window with the mean decode loss of its full steps, the last full
+      step's component losses, ``img_per_sec`` (sync to sync), the last
+      step's ``arch`` and ``lr``, the window's ``data_ms`` (the loop's
+      waits for batches) and ``step_ms`` (the rest, up to the sync). At
+      interval 1 every step is a window and a synchronized full step.
+    - Val workflow: with ``workflow`` ``[('train', N), ('val', M)]`` and a
+      val set, every N iterations M val batches go through
+      ``forward_train`` in eval mode under ``torch.no_grad()`` at archs
+      drawn from a sampler of their own; ``history["val_loss"]`` gets their
+      mean decode loss.
+    - Every ``checkpoint_config.interval`` iterations and at the end, the
+      BN statistics are calibrated at the MAX arch when the loop takes
+      silent steps and ``work_dir/iter_{it}.pth`` is written, with
+      ``latest.pth`` pointing at it (``work_dir=None``: no files). Every
+      ``evaluation.interval`` iterations, with a val set and a
+      ``val_sampler``, ``cross_arch_evaluate`` scores the val anchors in the
+      test pipeline's mode (calibrated for that eval only, unless the
+      checkpoint just did it) into ``history["eval"]``.
+
+    ``history`` (keys ``loss``, ``eval``, ``val_loss``) is also written to
+    ``work_dir/history.json``.
+    """
     device = resolve_device(device)
     model.to(device).train()
     data_cfg = cfg.get("data") or {}
     if train_dataset is None:
         train_dataset = build_dataset(data_cfg["train"], device=device)
+    if val_dataset is None and data_cfg.get("val"):
+        try:
+            val_dataset = build_dataset(data_cfg["val"], device=device)
+        except FileNotFoundError:
+            val_dataset = None
+    if val_dataset is not None and len(val_dataset) == 0:
+        val_dataset = None
     if train_sampler is None and cfg.get("train_sampler"):
         train_sampler = build_model_sampler(cfg["train_sampler"])
+    if val_sampler is None and cfg.get("val_sampler"):
+        val_sampler = build_model_sampler(cfg["val_sampler"])
     pipe = parse_train_pipeline((data_cfg.get("train") or {})
                                 .get("pipeline"))
+    test_pipe = parse_test_pipeline((data_cfg.get("val") or {})
+                                    .get("pipeline"))
     batch_size = int(data_cfg.get("samples_per_gpu", 2))
     epoch_iters, lr_config = resolve_epoch_schedule(
         cfg, len(train_dataset), batch_size)
@@ -241,15 +312,50 @@ def train_segmentor(model, cfg, *, device="cuda", train_dataset=None,
     optimizer = build_optimizer(model.parameters(), opt_cfg)
     max_norm = grad_clip_norm(cfg.get("optimizer_config"))
     max_arch = model_max_arch(cfg["model"])
+    if work_dir is not None:
+        os.makedirs(work_dir, exist_ok=True)
+    start = 0
+    if resume_from is None and cfg.get("auto_resume") and work_dir:
+        resume_from = latest_checkpoint(work_dir)
+    if resume_from:
+        start = int(load_checkpoint(resume_from, model, optimizer)["iter"])
+        _say(log, f"resumed from {resume_from} at iteration {start}")
+    elif load_from:
+        load_checkpoint(load_from, model)
+        _say(log, f"loaded weights from {load_from}")
+
+    log_interval = int((cfg.get("log_config") or {}).get("interval", 50))
+    ckpt_interval, eval_interval, ckpt_calib, eval_calib = _loop_intervals(
+        cfg, silent_steps=log_interval > 1)
+    workflow = list(cfg.get("workflow") or [("train", 1)])
+    wf_train = next((int(n) for m, n in workflow if m == "train"), 1)
+    wf_val = next((int(n) for m, n in workflow if m == "val"), 0)
+    val_phase = None
+    if wf_val and val_dataset is not None:
+        val_phase = _ValPhase(model, val_dataset, batch_size, test_pipe,
+                              cfg.get("train_sampler"), max_arch, device,
+                              wf_val)
+    max_enc = encode_arch(max_arch)
+
+    def calibrate(num_batches: int) -> None:
+        """BN statistics re-estimated at the MAX arch from train records."""
+        calibrate_bn(model, train_dataset, max_enc, num_batches=num_batches,
+                     batch_size=batch_size, test_params=test_pipe,
+                     device=device)
+
+    meta_classes = list(getattr(train_dataset, "CLASSES", None) or [])
+
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
+    history: Dict[str, List[Dict[str, Any]]] = {"loss": [], "eval": [],
+                                                "val_loss": []}
+    window = _Window(time.perf_counter())
     batches = make_train_feed(train_dataset, pipe, batch_size,
                               model.num_classes, device, seed,
                               int(cfg.get("device_prefetch", 4)))
-
-    history = []
+    it = start
     try:
-        for it in range(max_iters):
+        while it < max_iters:
             t0 = time.perf_counter()
             img, gt, ready = next(batches)
             take((img, gt), ready)
@@ -259,20 +365,153 @@ def train_segmentor(model, cfg, *, device="cuda", train_dataset=None,
             lr = schedule(it)
             set_learning_rate(optimizer, lr)
             t1 = time.perf_counter()
+            full = (it + 1) % log_interval == 0
             logs = train_step(model, optimizer, img, gt, arch, generator,
-                              max_norm)
-            vals = {k: float(v) for k, v in logs.items()}  # syncs the step
-            t2 = time.perf_counter()
+                              max_norm, update_stats=full)
             del img, gt
-            rec = {"iter": it + 1, "arch": meta.get("name", "random"),
-                   "lr": lr, **vals, "data_ms": (t1 - t0) * 1e3,
-                   "step_ms": (t2 - t1) * 1e3}
-            history.append(rec)
-            if log is not None:
-                log(f"iter {it + 1}/{max_iters} arch={rec['arch']} "
-                    f"loss={vals['loss']:.4f} lr={lr:.3e} "
-                    f"step={rec['step_ms']:.1f}ms "
-                    f"data={rec['data_ms']:.1f}ms")
+            window.step(t1 - t0, time.perf_counter() - t1,
+                        logs if full else None, meta.get("name", "random"),
+                        lr)
+            it += 1
+            if val_phase is not None and it % wf_train == 0:
+                history["val_loss"].append({"iter": it,
+                                            "loss": val_phase.run()})
+            if it % log_interval == 0:
+                row = window.close(it, log_interval * batch_size)
+                history["loss"].append(row)
+                _say(log, f"iter {it}/{max_iters} arch={row['arch']} "
+                     f"loss={row['loss']:.4f} lr={row['lr']:.3e} "
+                     f"{row['img_per_sec']:.1f} img/s "
+                     f"step={row['step_ms']:.1f}ms "
+                     f"data={row['data_ms']:.1f}ms")
+            calibrated = False
+            if work_dir is not None and (it % ckpt_interval == 0
+                                         or it == max_iters):
+                if ckpt_calib:
+                    t = time.perf_counter()
+                    calibrate(ckpt_calib)
+                    _say(log, f"calibrated BN ({ckpt_calib} batches, MAX) "
+                         f"in {time.perf_counter() - t:.4f}s")
+                    calibrated = ckpt_calib >= eval_calib
+                path = osp.join(work_dir, f"iter_{it}.pth")
+                t = time.perf_counter()
+                save_checkpoint(path, model, optimizer, meta={
+                    "iter": it, "CLASSES": meta_classes,
+                    "PALETTE": getattr(train_dataset, "PALETTE", None),
+                    "max_arch": max_arch})
+                update_latest(work_dir, path)
+                _say(log, f"saved {path} ({osp.getsize(path) / 1e6:.1f} MB)"
+                     f" in {time.perf_counter() - t:.4f}s")
+            if val_dataset is not None and val_sampler is not None and \
+                    it % eval_interval == 0:
+                saved = None
+                if eval_calib and not calibrated:
+                    saved = bn_stats(model)   # eval-only statistics
+                    calibrate(eval_calib)
+                try:
+                    res = cross_arch_evaluate(model, val_sampler,
+                                              val_dataset, max_arch,
+                                              test_params=test_pipe,
+                                              device=device)
+                finally:
+                    if saved is not None:
+                        load_bn_stats(model, saved)
+                history["eval"].append({"iter": it, "metrics": res})
+                _say(log, f"iter {it} cross-arch eval: " + ", ".join(
+                    f"{k} mIoU={v['mIoU']:.4f} ({v['seconds']:.2f}s)"
+                    for k, v in res.items()))
     finally:
         batches.close()     # stops the prefetch thread, drops staged batches
-    return history
+    if work_dir is not None:
+        with open(osp.join(work_dir, "history.json"), "w") as f:
+            json.dump(history, f, indent=2, default=_json_default)
+    return TrainState(model, optimizer, it), history
+
+
+def _say(log, msg: str) -> None:
+    if log is not None:
+        log(msg)
+
+
+class _Window:
+    """The loop's log window: host times, the full steps' device losses
+    (read once, at its end) and the last step's arch and LR."""
+
+    def __init__(self, t_start: float):
+        self.t_last = t_start
+        self.data_s = self.step_s = 0.0
+        self.losses, self.comp = [], {}
+
+    def step(self, data_s: float, step_s: float, logs, arch: str,
+             lr: float) -> None:
+        self.data_s += data_s
+        self.step_s += step_s
+        self.arch, self.lr = arch, lr
+        if logs is not None:
+            self.losses.append(logs["decode.loss_seg"])
+            self.comp = {k: v for k, v in logs.items()
+                         if "loss" in k and k != "loss"}
+
+    def close(self, it: int, images: int) -> Dict[str, Any]:
+        """Sync the device, then read the clock (JAX ``_sync_window_clock``);
+        the row of the window that ends at iteration ``it``."""
+        t_sync = time.perf_counter()
+        names = list(self.comp)
+        vals = torch.stack(self.losses + [self.comp[k] for k in names]) \
+            .float().cpu().tolist() if self.losses else []
+        t_now = time.perf_counter()
+        self.step_s += t_now - t_sync
+        n = len(self.losses)
+        row = {"iter": it,
+               "loss": sum(vals[:n]) / n if n else float("nan"),
+               "img_per_sec": images / max(t_now - self.t_last, 1e-9),
+               **dict(zip(names, vals[n:])),
+               "arch": self.arch, "lr": self.lr,
+               "data_ms": self.data_s * 1e3, "step_ms": self.step_s * 1e3}
+        self.t_last = t_now
+        self.data_s = self.step_s = 0.0
+        self.losses, self.comp = [], {}
+        return row
+
+
+class _ValPhase:
+    """The val workflow's loss batches (JAX ``engine/train.py:626-679``):
+    val records in order (infinite, the tail wrapped), normalized with the
+    test pipeline, at archs drawn from a sampler built anew from the train
+    sampler's config (the val draws do not consume the train sampler's)."""
+
+    def __init__(self, model, dataset, batch_size, test_pipe, sampler_cfg,
+                 max_arch, device, n_batches):
+        self.model, self.max_arch, self.device = model, max_arch, device
+        self.n_batches = n_batches
+        self.batches = iter(BatchLoader(dataset, batch_size, shuffle=False,
+                                        drop_last=False, infinite=True,
+                                        prefetch=0))
+        self.sampler = build_model_sampler(sampler_cfg) if sampler_cfg \
+            else None
+        self.mean = torch.tensor(test_pipe.mean, device=device)
+        self.std = torch.tensor(test_pipe.std, device=device)
+        self.dtype = torch.bfloat16 if device.type == "cuda" \
+            else torch.float32
+
+    @torch.no_grad()
+    def run(self) -> float:
+        losses = []
+        self.model.eval()
+        try:
+            for _ in range(self.n_batches):
+                batch = next(self.batches)
+                img = prepare_eval_batch(
+                    torch.from_numpy(np.asarray(batch["img"])).to(
+                        self.device), self.mean, self.std, dtype=self.dtype)
+                gt = torch.from_numpy(np.asarray(batch["gt"], np.int32)) \
+                    .to(self.device)
+                meta = self.sampler.sample() if self.sampler is not None \
+                    else None
+                with autocast(self.device):
+                    _, logs = self.model.forward_train(
+                        img, gt, encode_arch(self.max_arch, meta))
+                losses.append(float(logs["decode.loss_seg"]))
+        finally:
+            self.model.train()
+        return sum(losses) / len(losses)

@@ -2,14 +2,14 @@
 
 Port of ``gaiaseg_tpu/models/segmentors/encoder_decoder.py``: backbone
 (-> neck) -> decode head (+ aux heads, which read the neck's outputs too),
-losses of logits resized to label size, and
-whole-mode inference. The train step's mode is ``forward_train`` with
-``compute_acc=False`` (``engine/train.py:97`` of the JAX package), which is
-the only mode here. Slide inference and TTA wait for a later slice.
+losses of logits resized to label size, and inference in the config's
+``test_cfg`` mode (whole or slide) with flip and multi-scale TTA. The train
+step's mode is ``forward_train`` with ``compute_acc=False``
+(``engine/train.py:97`` of the JAX package), which is the only mode here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -114,18 +114,85 @@ class DynamicEncoderDecoder(nn.Module):
         return loss_fn(up, gt)
 
     # ------------------------------------------------------------------ #
-    def whole_inference(self, img: torch.Tensor,
-                        arch: Dict[str, Any]) -> torch.Tensor:
+    def _check_eval(self) -> None:
         if self.training:
             raise RuntimeError("inference needs eval mode (model.eval()): "
                                "train mode would update BN running stats")
+
+    def whole_inference(self, img: torch.Tensor,
+                        arch: Dict[str, Any]) -> torch.Tensor:
+        self._check_eval()
         return self.encode_decode(img, arch)
+
+    def slide_inference(self, img: torch.Tensor, arch: Dict[str, Any],
+                        crop_size: Tuple[int, int],
+                        stride: Tuple[int, int]) -> torch.Tensor:
+        """float32 ``[N,C,H,W]`` logits averaged over mmseg's window grid
+        (JAX ``encoder_decoder.py:189-247``). All windows of the batch run
+        as one forward; the overlaps add in window order on a float32
+        canvas and are divided by their cover count (true division, as the
+        reference's ``preds / count_mat``). Adding zeros is exact, so this
+        equals the JAX package's cell-by-cell sums bit for bit."""
+        self._check_eval()
+        n, _, h, w = img.shape
+        h_crop, w_crop = min(int(crop_size[0]), h), min(int(crop_size[1]), w)
+        h_stride, w_stride = int(stride[0]), int(stride[1])
+        h_grids = max(h - h_crop + h_stride - 1, 0) // h_stride + 1
+        w_grids = max(w - w_crop + w_stride - 1, 0) // w_stride + 1
+        origins = [(min(i * h_stride, h - h_crop), min(j * w_stride,
+                                                        w - w_crop))
+                   for i in range(h_grids) for j in range(w_grids)]
+        crops = torch.cat([img[:, :, y0:y0 + h_crop, x0:x0 + w_crop]
+                           for y0, x0 in origins], dim=0)
+        logits = self.encode_decode(crops, arch)
+        logits = logits.reshape(len(origins), n, *logits.shape[1:])
+        canvas = logits.new_zeros((n, logits.shape[2], h, w),
+                                  dtype=torch.float32)
+        count = torch.zeros((1, 1, h, w), device=img.device)
+        for k, (y0, x0) in enumerate(origins):
+            canvas[:, :, y0:y0 + h_crop, x0:x0 + w_crop] += logits[k]
+            count[:, :, y0:y0 + h_crop, x0:x0 + w_crop] += 1
+        return canvas / count
+
+    def _mode_logits(self, img: torch.Tensor,
+                     arch: Dict[str, Any]) -> torch.Tensor:
+        """The ``test_cfg`` mode's logits (whole or slide)."""
+        if self.test_cfg.get("mode", "whole") == "slide":
+            return self.slide_inference(img, arch,
+                                        tuple(self.test_cfg["crop_size"]),
+                                        tuple(self.test_cfg["stride"]))
+        return self.whole_inference(img, arch)
+
+    def inference(self, img: torch.Tensor, arch: Dict[str, Any],
+                  flip: bool = False) -> torch.Tensor:
+        """float32 softmax probabilities ``[N,C,H,W]``; ``flip`` averages
+        them with those of the horizontally flipped input, flipped back."""
+        prob = torch.softmax(self._mode_logits(img, arch).float(), dim=1)
+        if flip:
+            flipped = self._mode_logits(img.flip(-1), arch)
+            prob = (prob + torch.softmax(flipped.float(), dim=1).flip(-1)) / 2
+        return prob
 
     def simple_test(self, img: torch.Tensor, arch: Dict[str, Any],
                     flip: bool = False) -> torch.Tensor:
-        """Per-pixel class ``[N,H,W]`` (argmax of the logits, which equals
-        the argmax of the softmax)."""
-        if flip or self.test_cfg.get("mode", "whole") != "whole":
-            raise NotImplementedError(
-                "slide inference and flip TTA wait for a later slice")
-        return self.whole_inference(img, arch).argmax(dim=1)
+        """Per-pixel class ``[N,H,W]``. Without flip, the argmax of the
+        logits (which equals the argmax of the softmax)."""
+        if not flip:
+            return self._mode_logits(img, arch).argmax(dim=1)
+        return self.inference(img, arch, flip).argmax(dim=1)
+
+    def aug_test(self, imgs: Sequence[torch.Tensor], arch: Dict[str, Any],
+                 flip: bool = False,
+                 out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """Multi-scale (+ flip) TTA: the probabilities of each rescaled
+        input, resized back to ``out_hw`` (default: the first input's
+        size), averaged; per-pixel class ``[N,H,W]``."""
+        base_hw = tuple(out_hw) if out_hw is not None \
+            else tuple(imgs[0].shape[2:])
+        prob = None
+        for im in imgs:
+            p = self.inference(im, arch, flip)
+            if tuple(p.shape[2:]) != base_hw:
+                p = resize_bilinear(p, base_hw, self.align_corners)
+            prob = p if prob is None else prob + p
+        return (prob / len(imgs)).argmax(dim=1)

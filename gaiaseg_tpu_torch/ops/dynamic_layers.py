@@ -13,6 +13,7 @@ reference mmseg / timm ``state_dict``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple, Union
 
 import torch
@@ -86,6 +87,10 @@ class DynBatchNorm(nn.Module):
     gated update (``dynamic_layers.py:304-320``). ``momentum=0.1`` is torch's
     weight of the NEW statistic: the JAX ``momentum=0.9`` is the decay of the
     old one (``:238``). Both unbias the running variance by ``n/(n-1)``.
+
+    ``update_stats=False`` (set by ``frozen_bn_stats``) is the JAX silent
+    step's ``mutable=[]``: in train mode it still normalizes with the batch
+    statistics, and no running statistic changes.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -93,6 +98,7 @@ class DynBatchNorm(nn.Module):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -100,9 +106,46 @@ class DynBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
+        if self.training and x.numel() == c:
+            return self._one_value_per_channel(x)
+        if self.training and not self.update_stats:
+            return F.batch_norm(x, None, None, self.weight[:c], self.bias[:c],
+                                True, 0.0, self.eps)
         return F.batch_norm(x, self.running_mean[:c], self.running_var[:c],
                             self.weight[:c], self.bias[:c], self.training,
                             self.momentum, self.eps)
+
+    def _one_value_per_channel(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode on one value a channel (batch 1 through a 1x1 pool):
+        ``F.batch_norm`` refuses it, since its unbiasing ``n/(n-1)``
+        divides by zero. The JAX module's ``n/max(n-1, 1)`` is 1 there: the
+        batch variance 0 enters the running variance as it is."""
+        c = x.shape[1]
+        mean = x.mean(dim=(0, 2, 3), keepdim=True)
+        y = (x - mean) * torch.rsqrt(x.new_tensor(self.eps))
+        y = y * self.weight[:c, None, None] + self.bias[:c, None, None]
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean[:c].mul_(1 - m).add_(
+                    mean.flatten().to(self.running_mean.dtype), alpha=m)
+                self.running_var[:c].mul_(1 - m)
+        return y
+
+
+@contextlib.contextmanager
+def frozen_bn_stats(model: nn.Module):
+    """Within the block, every ``DynBatchNorm`` of ``model`` leaves its
+    running statistics alone (each module's flag is restored after)."""
+    bns = [m for m in model.modules() if isinstance(m, DynBatchNorm)]
+    saved = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, s in zip(bns, saved):
+            m.update_stats = s
 
 
 class DynLinear(nn.Module):

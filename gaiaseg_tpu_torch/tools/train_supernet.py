@@ -2,14 +2,21 @@
 """Supernet training CLI of the port (one GPU).
 
     python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG --max-iters 8
+    # go on from the last checkpoint of a run (weights, BN statistics,
+    # optimizer, iteration)
+    python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG \
+        --work-dir WD --resume-from WD/latest.pth
     # a packed file (gaiaseg_tpu_torch.tools.pack_dataset), kept on the card
     python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG --cfg-options \
         data.train.type=PackedDataset data.train.path=train.gsegpack \
         data.train.device_cache=true
 
 Loads the config (``_base_`` merging, ``--cfg-options`` dot-key overrides),
-builds the segmentor and the train sampler, runs ``train_segmentor`` and
-writes ``history.json`` into ``--work-dir``. The train data is the config's
+builds the segmentor and runs ``train_segmentor``, which writes its
+checkpoints (``iter_{N}.pth``, ``latest.pth``) and ``history.json`` into
+``--work-dir`` (default ``work_dirs/<config name>``). ``--resume-from``
+restores a checkpoint's weights, BN statistics, optimizer state and
+iteration; ``--load-from`` only its weights. The train data is the config's
 ``data.train``: a file dataset (Cityscapes, ADE20K, custom directories), a
 ``PackedDataset``, or ``SyntheticDataset``; ``device_cache`` stages it on
 the card when it fits the budget. The config's train pipeline runs on the
@@ -20,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import os.path as osp
 import sys
 
@@ -35,6 +41,8 @@ def parse_args(argv=None):
     p.add_argument("config")
     p.add_argument("--work-dir", default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resume-from", default=None)
+    p.add_argument("--load-from", default=None)
     p.add_argument("--max-iters", type=int, default=None)
     p.add_argument("--device", default="cuda")
     p.add_argument("--cfg-options", nargs="+", default=[],
@@ -70,14 +78,14 @@ def main(argv=None):
         cfg.merge_from_dict(cfg_options_to_dict(args.cfg_options))
     torch.backends.cudnn.benchmark = bool(cfg.get("cudnn_benchmark", False))
     torch.manual_seed(args.seed)
+    work_dir = args.work_dir or osp.join(
+        "work_dirs", osp.splitext(osp.basename(args.config))[0])
     model = build_segmentor(cfg["model"]).to(device)
-    history = train_segmentor(model, cfg, device=device,
-                              max_iters=args.max_iters, seed=args.seed,
-                              log=print)
-    if args.work_dir:
-        os.makedirs(args.work_dir, exist_ok=True)
-        with open(osp.join(args.work_dir, "history.json"), "w") as f:
-            json.dump(history, f, indent=2)
+    _, history = train_segmentor(
+        model, cfg, work_dir=work_dir, device=device,
+        max_iters=args.max_iters, seed=args.seed,
+        resume_from=args.resume_from or cfg.get("resume_from"),
+        load_from=args.load_from or cfg.get("load_from"), log=print)
     return history
 
 

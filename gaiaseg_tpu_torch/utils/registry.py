@@ -99,3 +99,4 @@ SEGMENTORS = Registry("segmentor")
 LOSSES = Registry("loss")
 DATASETS = Registry("dataset")
 SAMPLERS = Registry("model_sampler")
+RULES = Registry("sample_rule")

@@ -12,7 +12,7 @@
   trains on are the JAX ``BatchLoader``'s (shuffled by epoch, across epoch
   boundaries) through JAX ``augment_batch``; a device-cached dataset gives
   the streaming batches bit for bit.
-- ``evaluate_arch`` with a padded tail (5 images, batch 2): the confusion
+- ``evaluate`` with a padded tail (5 images, batch 2): the confusion
   matrix of batch 1, and of JAX ``confusion_matrix`` on the same
   predictions.
 """
@@ -32,8 +32,9 @@ from gaiaseg_tpu.engine import train as jtrain
 from gaiaseg_tpu.utils.config import Config as JConfig
 from gaiaseg_tpu_torch.data import (PackedDataset, SyntheticDataset,
                                     pack_dataset, parse_train_pipeline)
+from gaiaseg_tpu_torch.data import TestPipelineParams as EvalParams
 from gaiaseg_tpu_torch.data.device_cache import DeviceCachedDataset
-from gaiaseg_tpu_torch.engine import evaluate_arch, optim
+from gaiaseg_tpu_torch.engine import evaluate, optim
 from gaiaseg_tpu_torch.engine import train as ptrain
 from gaiaseg_tpu_torch.models import build_segmentor, encode_arch, \
     model_max_arch
@@ -97,7 +98,8 @@ def packed_path(tmp_path_factory):
 
 
 def _cfg(path, pipeline, **extra):
-    return dict(model=model_cfg(False),
+    """Log interval 1: every step is a full step and has its history row."""
+    return dict(model=model_cfg(False), log_config=dict(interval=1),
                 data=dict(samples_per_gpu=2,
                           train=dict(type="PackedDataset", path=path,
                                      pipeline=pipeline)),
@@ -133,7 +135,8 @@ def test_train_segmentor_runs_the_full_pipeline(monkeypatch, packed_path):
                              cat_max_ratio=0.75, num_classes=7,
                              dtype=torch.float32)
         assert torch.equal(img, want["img"]) and torch.equal(gt, want["gt"])
-    history = ptrain.train_segmentor(_model(cfg), cfg, device="cpu", seed=0)
+    history = ptrain.train_segmentor(_model(cfg), cfg, device="cpu",
+                                     seed=0)[1]["loss"]
     assert len(history) == 2
     assert all(np.isfinite(r["loss"]) and r["data_ms"] >= 0
                for r in history)
@@ -198,7 +201,8 @@ def test_epoch_schedule_sets_the_run_length(monkeypatch, packed_path):
     cfg = _cfg(packed_path, FULL_PIPELINE, total_epochs=2)
     cfg.pop("runner")
     cfg["lr_config"] = lrc
-    history = ptrain.train_segmentor(_model(cfg), cfg, device="cpu", seed=0)
+    history = ptrain.train_segmentor(_model(cfg), cfg, device="cpu",
+                                     seed=0)[1]["loss"]
     iters, resolved = jtrain.resolve_epoch_schedule(cfg, 6, 2)
     assert len(history) == iters == 6
     ref = joptim.build_lr_schedule(resolved, 0.01, iters)
@@ -211,8 +215,11 @@ def test_evaluate_arch_padded_tail_matches_batch_one(packed_path):
     model = _model(cfg).eval()
     ds = SyntheticDataset(length=5, size=(32, 40), num_classes=7, seed=4)
     arch = encode_arch(model_max_arch(cfg["model"]))
-    by2 = evaluate_arch(model, ds, arch, NORM, "cpu", batch_size=2)
-    by1 = evaluate_arch(model, ds, arch, NORM, "cpu", batch_size=1)
+    norm = EvalParams(mean=NORM["mean"], std=NORM["std"])
+    by2 = evaluate(model, ds, arch, test_params=norm, device="cpu",
+                   batch_size=2)
+    by1 = evaluate(model, ds, arch, test_params=norm, device="cpu",
+                   batch_size=1)
     assert np.array_equal(by2["confusion"], by1["confusion"])
     assert by2["confusion"].sum() == 5 * 32 * 40
     want = np.zeros((7, 7), np.int64)
