@@ -57,7 +57,23 @@ Phases, each printing its own lines; any failure exits non-zero:
             ``tools/test_supernet.py`` on iter_16.pth (the val anchors and
             two draws, --vmap 5 --bn-calibrate 2), its last subnet equal to
             ``evaluate`` alone on the statistics calibration gives it.
-9. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
+9. subnets  the subnet half of the NAS workflow on the flagship at full
+            width: ``tools/count_flops.py`` on the flagship FLOPs sampler,
+            shard 0 of 16 (37,316 of its 597,051 subnets; subnets/s on the
+            host) and the flagship rules over it (a non-empty selection);
+            a supernet .pth from seed 0 with BN calibrated at MAX over 2
+            batches; ``tools/extract_subnet.py`` for R50, R101 and
+            RSPECIFIC (files md5(meta)[:8].pth, MB and seconds), each
+            subnet's parameter count equal to the analytic one and its
+            float32 logits on a 512x1024 image within 1e-4 of max|ref| of
+            the supernet's at its arch; ``tools/finetune_supernet.py`` (the
+            ft2e schedule) on the first 2 rule-selected subnets for 4
+            iterations each, K1 and K2 16 launches each, finite losses and
+            mIoU, seconds per subnet split into steps, checkpoint and eval;
+            the second subnet's first loss equal to that subnet fine-tuned
+            alone from the checkpoint; a rerun that skips both and launches
+            nothing.
+10. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
             (``flash_bwd_dq``) against their plain torch versions at the ViT
             shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025, 200
             (ragged tails), 1088 (a half-empty last 128-row block), 64 (one
@@ -66,11 +82,11 @@ Phases, each printing its own lines; any failure exits non-zero:
             beside the plain version, SDPA and the bound, K3 beside SDPA's
             forward and the port's whole attention backward
             (``attention_di`` + K4 + K5) beside SDPA's backward, in turns.
-10. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
+11. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
             the flash kernels equal the dense attention route (bf16, a
             batch of 8); two planted faults in dq (zeroed, halved) must
             fail that check.
-11. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
+12. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
             UPerNet supernet (``configs/_dynamic_/models/upernet_elastic_
             vit.py`` with ``with_cls_token=False``, so the flash gate opens)
             at full width, synthetic 512x512 records kept on the card
@@ -79,7 +95,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             K3-K5 must each launch once per active layer, K1/K2 twice per
             iteration. Then the cycle again for warm times, a profiled
             MAX step, and the least step times over three warm cycles.
-12. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
+13. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
             of four synthetic 512x1024 images, one forward an image) at the
             val anchors MIN and MAX, then flip, multi-scale (0.75, 1.0) and
             whole runs at MAX, seconds an image each; flash_fwd launches
@@ -114,8 +130,8 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
                    "upernet_elastic_vit.py")
 PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
-          "eval", "loop", "flash_kernels", "vit_segmentor", "vit_train",
-          "vit_eval")
+          "eval", "loop", "subnets", "flash_kernels", "vit_segmentor",
+          "vit_train", "vit_eval")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
 REPO_KERNELS = ("fwd_tile", "fwd_tile_any", "bwd_tile", "bwd_tile_any",
@@ -1284,6 +1300,260 @@ def phase_loop(ctx):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the subnets phase: count, filter, extract and fine-tune on the flagship
+FLOPS_CFG = os.path.join(REPO, "configs", "local_examples", "count_flops",
+                         "psp_ar50to101v2_flops.py")
+RULES_CFG = os.path.join(REPO, "configs", "_dynamic_", "rules",
+                         "ar50to101v2_rules.py")
+EXTRACT_CFGS = [os.path.join(REPO, "configs", "local_examples",
+                             "extract_subnet", name)
+                for name in ("psp_ar50to101_extract.py",
+                             "psp_specific_extract.py")]
+FT_CFG = os.path.join(REPO, "configs", "local_examples", "fast_finetune",
+                      "psp_ar50to101v2_ft.py")
+FLOPS_SHARDS, FLOPS_SHARD_ROWS = 16, 37316   # round-robin shard 0 of 597,051
+SUBNET_CALIB = 2          # BN batches at MAX before the supernet .pth
+SUBNET_IMAGE = (512, 1024)
+SUBNET_RTOL = 1e-4        # extracted subnet vs the supernet at its arch,
+                          # float32 with TF32 off (cuDNN picks other conv
+                          # algorithms for the narrower shapes)
+FT_SUBNETS, FT_ITERS = 2, 4
+
+
+def _ft_seconds(lines, name):
+    """(train s, eval s) of subnet ``name`` from finetune_supernet's line."""
+    pat = re.compile(rf"\] {name} mIoU=\S+ \(train ([\d.]+)s, eval "
+                     r"([\d.]+)s\)")
+    found = [tuple(map(float, m.groups())) for m in map(pat.search, lines)
+             if m]
+    check(len(found) == 1, f"subnets: no timing line for {name}")
+    return found[0]
+
+
+def phase_subnets(ctx):
+    """The subnet half of the NAS workflow on the flagship at full width:
+    the analytic FLOPs sweep (shard 0 of 16) and the flagship rules, the
+    extraction of R50 / R101 / RSPECIFIC from a calibrated supernet .pth
+    (each against its analytic parameter count and the supernet at its
+    arch), and the fast-finetune of two rule-selected subnets (K1/K2 16
+    launches each, a rerun that skips both, the second subnet's first loss
+    equal to that subnet fine-tuned alone)."""
+    import shutil
+    import tempfile
+    import torch
+    from gaiaseg_tpu_torch.archspace import (ModelSpace, build_model_sampler,
+                                             build_sample_rule, fold_dict,
+                                             get_model_complexity_info,
+                                             meta_hash)
+    from gaiaseg_tpu_torch.data import build_dataset
+    from gaiaseg_tpu_torch.engine import (calibrate_bn, configure_numerics,
+                                          save_checkpoint, train_segmentor)
+    from gaiaseg_tpu_torch.models import (build_segmentor, encode_arch,
+                                          model_max_arch)
+    from gaiaseg_tpu_torch.models.arch_util import canonical_arch
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from gaiaseg_tpu_torch.tools import (count_flops, extract_subnet,
+                                         finetune_supernet)
+    from gaiaseg_tpu_torch.tools.train_supernet import cfg_options_to_dict
+    from gaiaseg_tpu_torch.utils import Config
+    smi = ctx["nvidia_smi"]
+    out = ctx["subnets"] = {}
+    configure_numerics()
+    torch.backends.cudnn.benchmark = False
+    tmp = tempfile.mkdtemp(prefix="gseg_subnets_")
+    try:
+        # 1. the FLOPs sweep and the rules (host only)
+        flops_dir = os.path.join(tmp, "flops")
+        n, secs = count_flops.main([
+            FLOPS_CFG, "--work-dir", flops_dir, "--shard-id", "0",
+            "--num-shards", str(FLOPS_SHARDS)],
+            log=lambda s: print(f"[subnets] count_flops {s}"))
+        with open(os.path.join(flops_dir, "flops.json")) as f:
+            rows = json.load(f)
+        check(n == len(rows) == FLOPS_SHARD_ROWS,
+              f"subnets: count_flops wrote {n} / {len(rows)} rows, want "
+              f"{FLOPS_SHARD_ROWS}")
+        band = sum(135e9 <= r["overhead"]["flops"] <= 140e9 for r in rows)
+        selected = ModelSpace.load(rows).apply_rule(build_sample_rule(
+            Config.fromfile(RULES_CFG)["model_sampling_rules"])).pack()
+        check(len(selected) >= FT_SUBNETS,
+              f"subnets: the flagship rules selected {len(selected)}")
+        out["count_flops"] = {"subnets": n, "seconds": secs,
+                              "subnets_per_s": n / secs, "in_band": band,
+                              "selected": len(selected)}
+        print(f"[subnets] count_flops: shard 0 of {FLOPS_SHARDS} of the "
+              f"597,051-subnet flagship space (all traversed): {n} subnets "
+              f"in {secs:.2f}s on the host, {n / secs:.0f} subnets/s; {band} "
+              f"in the 135-140 GFLOPs band, the rules select "
+              f"{len(selected)}; on {smi}")
+
+        # the supernet: seed 0, BN statistics calibrated at MAX
+        cfg = _flagship_cfg()
+        model = _build_model(cfg)
+        max_arch = model_max_arch(cfg["model"])
+        train_cfg = cfg["data"]["train"]
+        calibrate_bn(model, build_dataset(train_cfg, device="cuda"),
+                     encode_arch(max_arch), num_batches=SUBNET_CALIB,
+                     batch_size=cfg["data"]["samples_per_gpu"],
+                     test_params=_test_params(cfg))
+        ckpt = os.path.join(tmp, "supernet.pth")
+        save_checkpoint(ckpt, model, meta={"iter": 0, "max_arch": max_arch})
+        model.eval()
+        print(f"[subnets] supernet .pth (seed 0, BN calibrated at MAX over "
+              f"{SUBNET_CALIB} batches): {os.path.getsize(ckpt) / 1e6:.1f} "
+              "MB")
+
+        # 2. extraction, each subnet against the analytic count and the
+        # supernet at its arch on one synthetic image (float32, TF32 off)
+        img = torch.randn(1, 3, *SUBNET_IMAGE, generator=torch.Generator()
+                          .manual_seed(0)).cuda()
+        out["extract"] = []
+        for path in EXTRACT_CFGS:
+            ecfg = Config.fromfile(path)
+            written = extract_subnet.main([
+                path, ckpt, "--work-dir", os.path.join(tmp, "subnets"),
+                "--smoke-size", *map(str, SUBNET_IMAGE)])
+            names = [m.get("name") for m in
+                     build_model_sampler(ecfg["train_sampler"]).traverse()]
+            check([r["name"] for r in written] == names,
+                  f"subnets: extracted {[r['name'] for r in written]}, want "
+                  f"{names}")
+            for row in written:
+                check(os.path.basename(row["path"])
+                      == f"{meta_hash(row['meta'])}.pth",
+                      f"subnets: file name {row['path']}")
+                saved = torch.load(row["path"], map_location="cuda",
+                                   weights_only=False)
+                sub_cfg = saved["meta"]["model_cfg"]
+                sub = build_segmentor(sub_cfg).cuda()
+                sub.load_state_dict(saved["state_dict"], strict=True)
+                n_params = sum(p.numel() for p in sub.parameters())
+                arch = canonical_arch(max_arch, row["meta"])
+                want = get_model_complexity_info(
+                    ecfg["model"], arch, (3, *SUBNET_IMAGE))["params"]
+                with torch.no_grad():
+                    got = sub.eval()(img, encode_arch(model_max_arch(
+                        sub_cfg)))
+                    ref = model(img, encode_arch(max_arch, row["meta"]))
+                err = float((got - ref).abs().max())
+                scale = float(ref.abs().max())
+                check(n_params == want and torch.isfinite(got).all()
+                      and err <= SUBNET_RTOL * scale,
+                      f"subnets: {row['name']}: {n_params} parameters "
+                      f"(analytic {want:.0f}), logits max|d| {err:.2e} of "
+                      f"max|ref| {scale:.2e}")
+                out["extract"].append({
+                    "name": row["name"], "file": os.path.basename(row["path"]),
+                    "mb": row["mb"], "seconds": row["seconds"],
+                    "params": n_params, "max_abs_err": err,
+                    "max_abs_ref": scale})
+                print(f"[subnets] extract {row['name']}: "
+                      f"{os.path.basename(row['path'])} {row['mb']:.1f} MB in "
+                      f"{row['seconds']:.2f}s (slice, build, "
+                      f"{SUBNET_IMAGE[0]}x{SUBNET_IMAGE[1]} smoke forward, "
+                      f"write); {n_params} parameters = analytic; "
+                      f"logits vs the supernet at the arch (float32) max|d| "
+                      f"{err:.2e} of max|ref| {scale:.2e}; on {smi}")
+                del saved, sub
+        del model
+        torch.cuda.empty_cache()
+
+        # 3. fast-finetune: the first rule-selected subnets, 4 iterations
+        # each, synthetic train (512x1024, on the card) and val (1024x2048)
+        space = os.path.join(tmp, "space.json")
+        with open(space, "w") as f:
+            json.dump(selected[:FT_SUBNETS], f)
+        opts = ["model_sampling_rules=null",
+                f"data.train={json.dumps(train_cfg)}",
+                "data.val=" + json.dumps({
+                    "type": "SyntheticDataset", "size": [1024, 2048],
+                    "length": LOOP_VAL_RECORDS, "num_classes": 19, "seed": 1,
+                    "cells": 8}),
+                f"data.samples_per_gpu={cfg['data']['samples_per_gpu']}",
+                "log_config.interval=1"]
+        argv = [FT_CFG, ckpt, "--model-space", space, "--work-dir",
+                os.path.join(tmp, "ft"), "--max-iters", str(FT_ITERS),
+                "--cfg-options", *opts]
+        lines = []
+
+        def log(msg):
+            lines.append(msg)
+            print(f"[subnets] finetune {msg}")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = finetune_supernet.main(argv, log=log)
+        torch.cuda.synchronize()
+        ft_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        want = {"resize_ce_fwd": FT_SUBNETS * FT_ITERS * 2,
+                "resize_ce_bwd": FT_SUBNETS * FT_ITERS * 2}
+        check(all(launches[k] == v for k, v in want.items()),
+              f"subnets: finetune launches {launches}, want {want} (decode "
+              "+ aux each step; the eval runs no loss)")
+        mious = [r["metric"]["fastft_metric"]["mIoU"] for r in rows]
+        check(len(rows) == FT_SUBNETS and all(map(math.isfinite, mious)),
+              f"subnets: fastft_metrics.json rows {len(rows)}, mIoU {mious}")
+        per = []
+        for i in range(FT_SUBNETS):
+            with open(os.path.join(tmp, "ft", f"subnet_{i}",
+                                   "history.json")) as f:
+                hist = json.load(f)["loss"]
+            check(len(hist) == FT_ITERS
+                  and all(r["arch"] == f"subnet_{i}" for r in hist)
+                  and all(math.isfinite(r["loss"]) for r in hist),
+                  f"subnets: subnet_{i} history {hist}")
+            train_s, eval_s = _ft_seconds(lines, f"subnet_{i}")
+            save = _seconds([x for x in lines
+                             if f"subnet_{i}{os.sep}iter_" in x],
+                            r"saved .* in ([\d.]+)s")
+            steps_s = sum(r["step_ms"] + r["data_ms"] for r in hist) / 1e3
+            per.append({"train_s": train_s, "steps_s": steps_s,
+                        "checkpoint_s": save[0], "eval_s": eval_s,
+                        "first_loss": hist[0]["loss"],
+                        "losses": [r["loss"] for r in hist]})
+            print(f"[subnets] finetune subnet_{i}: {train_s:.2f}s in the "
+                  f"loop ({FT_ITERS} steps {steps_s:.2f}s, final checkpoint "
+                  f"{save[0]:.2f}s, the rest the load_from), eval of "
+                  f"{LOOP_VAL_RECORDS} images 1024x2048 {eval_s:.2f}s; "
+                  f"losses " + " ".join(f"{x:.4f}" for x in per[-1]["losses"])
+                  + f", mIoU {mious[i]:.4f}; on {smi}")
+        out["finetune"] = {"seconds": ft_s, "launches": launches,
+                           "subnets": per, "mIoU": mious}
+
+        # the second subnet alone, from a fresh model and a fresh load of
+        # the checkpoint: its first loss is the sweep's
+        ftcfg = Config.fromfile(FT_CFG)
+        ftcfg.merge_from_dict(cfg_options_to_dict(opts))
+        anchor = dict(selected[1])
+        torch.manual_seed(1)
+        fresh = build_segmentor(ftcfg["model"]).cuda()
+        alone = train_segmentor(
+            fresh, ftcfg, device="cuda", train_sampler=build_model_sampler(
+                dict(type="anchor", anchors=[dict(fold_dict(anchor),
+                                                  name="subnet_1")])),
+            max_iters=1, seed=0, load_from=ckpt)[1]["loss"][0]["loss"]
+        check(alone == per[1]["first_loss"],
+              f"subnets: subnet_1's first loss {per[1]['first_loss']!r} in "
+              f"the sweep, {alone!r} alone")
+        del fresh
+        torch.cuda.empty_cache()
+
+        # a rerun finds both done: nothing trained, no kernel launched
+        reset_launches()
+        again = finetune_supernet.main(argv, log=log)
+        check(again == rows and not any(LAUNCHES.values())
+              and sum("already finetuned" in x for x in lines) == FT_SUBNETS,
+              f"subnets: the rerun launched {dict(LAUNCHES)}")
+        print(f"[subnets] finetune of {FT_SUBNETS} subnets in {ft_s:.1f}s: "
+              f"K1/K2 {launches['resize_ce_fwd']}/{launches['resize_ce_bwd']}"
+              f" launches; subnet_1 alone from the checkpoint: first loss "
+              f"{alone:.6f} (equal); the rerun skipped both, launching "
+              f"nothing; on {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # --------------------------------------------------------------------- #
 def _vit_cfg():
     from gaiaseg_tpu_torch.utils import Config
@@ -1673,7 +1943,8 @@ def main(argv) -> int:
         print(f"chip_smoke: the port package is missing beside this file "
               f"({e})", file=sys.stderr)
         return 1
-    for path in (FLAGSHIP, VIT, ADE20K):
+    for path in (FLAGSHIP, VIT, ADE20K, FLOPS_CFG, RULES_CFG, FT_CFG,
+                 *EXTRACT_CFGS):
         if not os.path.isfile(path):
             print(f"chip_smoke: config missing: {path}", file=sys.stderr)
             return 1
@@ -1702,6 +1973,7 @@ def main(argv) -> int:
                    "launches": ctx.get("launches"),
                    "train": ctx.get("train"), "profile": ctx.get("profile"),
                    "eval": ctx.get("eval"), "loop": ctx.get("loop"),
+                   "subnets": ctx.get("subnets"),
                    "flash_timings": ctx.get("flash_timings"),
                    "flash_forward": ctx.get("flash_forward"),
                    "flash_backward": ctx.get("flash_backward"),

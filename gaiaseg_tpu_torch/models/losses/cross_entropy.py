@@ -46,6 +46,9 @@ class CrossEntropyLoss:
             raise NotImplementedError(
                 "sigmoid / mask CE, class weights and reductions other than "
                 "'mean' wait for a later slice of the port")
+        self.use_sigmoid = use_sigmoid
+        self.class_weight = class_weight
+        self.reduction = reduction
         self.loss_weight = loss_weight
         self.avg_non_ignore = avg_non_ignore
         self.loss_name = loss_name

@@ -103,8 +103,11 @@ class DynamicEncoderDecoder(nn.Module):
 
     def _seg_loss(self, logit: torch.Tensor, gt: torch.Tensor, label_hw,
                   loss_fn) -> torch.Tensor:
-        plain_ce = isinstance(loss_fn, CrossEntropyLoss) \
-            and loss_fn.avg_non_ignore
+        plain_ce = (isinstance(loss_fn, CrossEntropyLoss)
+                    and not loss_fn.use_sigmoid
+                    and loss_fn.class_weight is None
+                    and loss_fn.reduction == "mean"
+                    and loss_fn.avg_non_ignore)
         if self.fused_loss is not False and plain_ce and \
                 supports_fused_resize_ce(tuple(logit.shape[2:]), label_hw,
                                          self.align_corners):

@@ -66,6 +66,17 @@ LOOP_MODULES = {
 }
 
 
+# modules of the subnet-tools slice
+SUBNET_MODULES = {
+    "gaiaseg_tpu_torch.archspace.complexity",
+    "gaiaseg_tpu_torch.engine.extract",
+    "gaiaseg_tpu_torch.engine.label_surgery",
+    "gaiaseg_tpu_torch.tools.count_flops",
+    "gaiaseg_tpu_torch.tools.extract_subnet",
+    "gaiaseg_tpu_torch.tools.finetune_supernet",
+}
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          capture_output=True, text=True, timeout=300,
@@ -73,7 +84,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.split(" ", 1)
     names = set(names.split(","))
-    want = VIT_MODULES | DATA_MODULES | LOOP_MODULES
+    want = VIT_MODULES | DATA_MODULES | LOOP_MODULES | SUBNET_MODULES
     assert len(names) >= 30 and want <= names, want - names
     assert bad.strip() == "[]", bad
 
@@ -113,9 +124,20 @@ def _entry_population():
     evaluate_population(None, [], [], device="cuda")
 
 
+def _entry_extract_cli():
+    from gaiaseg_tpu_torch.tools import extract_subnet
+    extract_subnet.main([FLAGSHIP, "missing.pth", "--work-dir", "unused"])
+
+
+def _entry_finetune_cli():
+    from gaiaseg_tpu_torch.tools import finetune_supernet
+    finetune_supernet.main([FLAGSHIP, "missing.pth", "--work-dir", "unused"])
+
+
 @pytest.mark.parametrize("entry", [_entry_train_cli, _entry_train_segmentor,
                                    _entry_evaluate, _entry_test_supernet_cli,
-                                   _entry_init_segmentor, _entry_population])
+                                   _entry_init_segmentor, _entry_population,
+                                   _entry_extract_cli, _entry_finetune_cli])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="cuda"):
         entry()
@@ -140,6 +162,17 @@ def test_train_raises_without_cuda_before_it_touches_the_dataset(
     cfg = Config.fromfile(FLAGSHIP).to_dict()
     with pytest.raises(RuntimeError, match="cuda"):
         train.train_segmentor(torch.nn.Linear(1, 1), cfg, device="cuda")
+
+
+def test_count_flops_runs_without_a_device(no_cuda, tmp_path):
+    """The sweep is analytic: no tensor, no device, no ``--device``."""
+    from gaiaseg_tpu_torch.tools import count_flops
+    tiny = os.path.join(REPO, "configs", "tests", "tiny_synthetic.py")
+    n, _ = count_flops.main([tiny, "--work-dir", str(tmp_path)],
+                            log=lambda s: None)
+    assert n == 514 and (tmp_path / "flops.json").is_file()
+    with pytest.raises(SystemExit):
+        count_flops.parse_args([tiny, "--work-dir", "x", "--device", "cpu"])
 
 
 def _run_smoke(cwd, env_extra):
