@@ -73,7 +73,20 @@ Phases, each printing its own lines; any failure exits non-zero:
             the second subnet's first loss equal to that subnet fine-tuned
             alone from the checkpoint; a rerun that skips both and launches
             nothing.
-10. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
+10. ddp     data parallelism on the one card (NCCL refuses two ranks on one
+            device): 2 ranks over gloo sharing cuda:0, each at 4 of the
+            flagship's batch of 8: one float32 MAX step (autocast and TF32
+            off) against one process's batch-8 step from the same weights
+            (loss within 1e-5 relative, each gradient within 1e-3 of its
+            max); one bf16 sandwich cycle through ``train_segmentor`` (K1
+            and K2 16 launches on each rank, the gradient all-reduce's ms
+            and MB a step, one checkpoint from rank 0, weights, BN
+            statistics and momenta equal on both ranks by checksums); a
+            sharded eval of two 1024x2048 records at R50 equal to one
+            process's. Then ``python -m torch.distributed.run
+            --nproc_per_node 1`` of the train CLI on the flagship for 8
+            iterations: an NCCL group of world size 1, finite losses.
+11. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
             (``flash_bwd_dq``) against their plain torch versions at the ViT
             shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025, 200
             (ragged tails), 1088 (a half-empty last 128-row block), 64 (one
@@ -82,11 +95,11 @@ Phases, each printing its own lines; any failure exits non-zero:
             beside the plain version, SDPA and the bound, K3 beside SDPA's
             forward and the port's whole attention backward
             (``attention_di`` + K4 + K5) beside SDPA's backward, in turns.
-11. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
+12. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
             the flash kernels equal the dense attention route (bf16, a
             batch of 8); two planted faults in dq (zeroed, halved) must
             fail that check.
-12. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
+13. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
             UPerNet supernet (``configs/_dynamic_/models/upernet_elastic_
             vit.py`` with ``with_cls_token=False``, so the flash gate opens)
             at full width, synthetic 512x512 records kept on the card
@@ -95,7 +108,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             K3-K5 must each launch once per active layer, K1/K2 twice per
             iteration. Then the cycle again for warm times, a profiled
             MAX step, and the least step times over three warm cycles.
-13. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
+14. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
             of four synthetic 512x1024 images, one forward an image) at the
             val anchors MIN and MAX, then flip, multi-scale (0.75, 1.0) and
             whole runs at MAX, seconds an image each; flash_fwd launches
@@ -130,7 +143,7 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
                    "upernet_elastic_vit.py")
 PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
-          "eval", "loop", "subnets", "flash_kernels", "vit_segmentor",
+          "eval", "loop", "subnets", "ddp", "flash_kernels", "vit_segmentor",
           "vit_train", "vit_eval")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
@@ -1555,6 +1568,366 @@ def phase_subnets(ctx):
 
 
 # --------------------------------------------------------------------- #
+# the ddp phase: data parallelism on the one card (2 gloo ranks sharing
+# cuda:0; NCCL refuses two ranks on one device), then an NCCL process group
+# of world size 1 through torchrun
+DDP_WORLD, DDP_BATCH = 2, 4          # 2 ranks x 4 = the flagship's batch 8
+DDP_ITERS = 8                        # one sandwich cycle
+DDP_EVAL_RECORDS = 2                 # of 1024x2048, at R50
+DDP_TIMEOUT_S = 600
+# one MAX step from the same weights, 2 ranks x 4 against one process x 8,
+# autocast and TF32 off. In float64 the gradients agree within
+# DDP_F64_RTOL of each tensor's max. In float32 the random flagship in train
+# mode (loss 10 at init) amplifies rounding: two one-process float32 routes
+# (BN in cuDNN's arithmetic or the ranks') read 6-9% apart (global L2;
+# PERF.md, PR 9), so the 2-rank float32 gradient may be no farther from the
+# float64 one than DDP_F32_FLOOR_RATIO times the one-process float32 one is;
+# its loss is within F32_LOSS_RTOL of the one-process float32 loss.
+DDP_F64_RTOL = 1e-6
+DDP_F32_FLOOR_RATIO = 2.0
+
+
+def _ddp_cfg(batch):
+    cfg = _flagship_cfg()
+    cfg.merge_from_dict({"data.samples_per_gpu": batch,
+                         "checkpoint_config.interval": DDP_ITERS})
+    return cfg
+
+
+def _ddp_model(cfg, device):
+    import torch
+    from gaiaseg_tpu_torch.models import build_segmentor
+    torch.manual_seed(0)
+    return build_segmentor(cfg["model"]).to(device)
+
+
+def _one_step(cfg, rows, device, dtype, rank_bn=False):
+    """One train step of the model's MAX from seed 0 in ``dtype`` (autocast
+    off) on records ``rows`` of DDP_WORLD x DDP_BATCH synthetic records of
+    the train records' size (seed 3): (summed loss, {name: grad}), the
+    gradients summed over the ranks (every rank holds them). ``rank_bn``:
+    in one process, BN takes the ranks' arithmetic (``sync_batch_norm``
+    with rank 0's row of the combined statistics, the others empty) in
+    place of cuDNN's: a second one-process route that rounds otherwise."""
+    import contextlib
+    import torch
+    from gaiaseg_tpu_torch.data import SyntheticDataset
+    from gaiaseg_tpu_torch.engine import build_optimizer, prepare_batch
+    from gaiaseg_tpu_torch.engine import train as train_mod
+    from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
+    from gaiaseg_tpu_torch.ops import dynamic_layers
+    from gaiaseg_tpu_torch.parallel import sum_over_ranks
+    model = _ddp_model(cfg, device).to(dtype).train()
+    ds = SyntheticDataset(length=DDP_WORLD * DDP_BATCH,
+                          size=tuple(cfg["data"]["train"]["size"]),
+                          num_classes=model.num_classes, seed=3, cells=8)
+    img, gt = prepare_batch([ds[i] for i in range(len(ds))][rows],
+                            cfg["img_norm_cfg"], device)
+    opt = build_optimizer(model.parameters(), {"type": "SGD", "lr": 0.0,
+                                               "momentum": 0.9})
+    amp, dp = train_mod.autocast, dynamic_layers.data_parallel
+    train_mod.autocast = lambda device: contextlib.nullcontext()
+    if rank_bn:
+        dynamic_layers.data_parallel = lambda: (0, DDP_WORLD)
+    try:
+        logs = train_mod.train_step(
+            model, opt, img.to(dtype), gt,
+            encode_arch(model_max_arch(cfg["model"])),
+            torch.Generator(device).manual_seed(0))
+    finally:
+        train_mod.autocast, dynamic_layers.data_parallel = amp, dp
+    loss = float(sum_over_ranks(logs["loss"].double()))
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    return loss, grads
+
+
+def _grad_errors(loss, grads, ref_loss, ref_grads):
+    """Loss and per-tensor gradient differences, max|d| / max|ref|."""
+    rel = sorted((float((g - ref_grads[k].to(g.device)).abs().max())
+                  / max(float(ref_grads[k].abs().max()), 1e-30), k)
+                 for k, g in grads.items())
+    d2 = sum(float((g - ref_grads[k].to(g.device)).double().square().sum())
+             for k, g in grads.items())
+    r2 = sum(float(g.double().square().sum()) for g in ref_grads.values())
+    return {"loss": loss, "ref_loss": ref_loss,
+            "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+            "worst_grad_rel": rel[-1][0], "worst_tensor": rel[-1][1],
+            "p99_grad_rel": rel[int(0.99 * (len(rel) - 1))][0],
+            "median_grad_rel": rel[len(rel) // 2][0],
+            "global_rel": (d2 / max(r2, 1e-300)) ** 0.5,
+            "worst5": rel[-5:]}
+
+
+def _ddp_rank(rank, world, port, tmp, ref_path, out_path, cfg_dict, device,
+              eval_size):
+    """One rank of the 2-rank phase (``cfg_dict`` at this rank's batch);
+    writes its readings to ``out_path``."""
+    import torch
+    from gaiaseg_tpu_torch import parallel
+    from gaiaseg_tpu_torch.utils import Config
+    from gaiaseg_tpu_torch.data import SyntheticDataset
+    from gaiaseg_tpu_torch.engine import (configure_numerics, evaluate,
+                                          train_segmentor)
+    from gaiaseg_tpu_torch.engine import train as train_mod
+    from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    configure_numerics()
+    parallel.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                    backend="gloo", timeout_s=DDP_TIMEOUT_S)
+    out = {}
+    cfg = Config(cfg_dict)
+    try:
+        # 1. one step in float64 and one in float32 against one process's
+        rows = slice(rank * DDP_BATCH, (rank + 1) * DDP_BATCH)
+        refs = torch.load(ref_path) if rank == 0 else None
+        for dtype in (torch.float64, torch.float32):
+            loss, grads = _one_step(cfg, rows, device, dtype)
+            if rank == 0:
+                name = str(dtype).split(".")[1]
+                out[name] = _grad_errors(loss, grads, refs["float64"]["loss"],
+                                         refs["float64"]["grads"])
+                out[name]["loss_vs_one_process"] = abs(
+                    loss - refs[name]["loss"]) / abs(refs[name]["loss"])
+            del grads
+            if cuda:
+                torch.cuda.empty_cache()
+        del refs
+
+        # 2. one bf16 sandwich cycle through train_segmentor, K1/K2 counted,
+        # the gradient all-reduce timed (synchronized on both sides)
+        reduce_ms, reduce_mb = [], []
+        reduce = train_mod.all_reduce_grads
+
+        def timed(params):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = reduce(params)
+            if cuda:
+                torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+            reduce_mb.append(n / 1e6)
+            return n
+        model = _ddp_model(cfg, device)
+        work_dir = os.path.join(tmp, "work")
+        train_mod.all_reduce_grads = timed
+        reset_launches()
+        try:
+            state, history = train_segmentor(
+                model, cfg, work_dir=work_dir, device=device,
+                max_iters=DDP_ITERS, seed=0)
+        finally:
+            train_mod.all_reduce_grads = reduce
+        out["launches"] = dict(LAUNCHES)
+        out["history"] = history["loss"]
+        out["reduce_ms"], out["reduce_mb"] = reduce_ms, reduce_mb
+        # per-tensor checksums of weights, BN statistics and momenta
+        sums = {k: float(v.double().sum()) for k, v in
+                model.state_dict().items()}
+        sums.update({f"momentum.{k}": float(state.optimizer.state[p]
+                                            ["momentum_buffer"].double()
+                                            .sum())
+                     for k, p in model.named_parameters()})
+        out["checksums"] = parallel.all_gather_objects(sums)
+        out["files"] = sorted(os.listdir(work_dir))
+
+        # 3. a sharded eval of two 1024x2048 records at R50 against the
+        # one-process eval on this rank (its collectives off)
+        model.eval()
+        ds = SyntheticDataset(length=DDP_EVAL_RECORDS, size=eval_size,
+                              num_classes=model.num_classes, seed=1, cells=8)
+        r50 = encode_arch(model_max_arch(cfg["model"]),
+                          cfg["train_sampler"]["model_samplers"][0]
+                          ["anchors"][-1])
+        kw = dict(test_params=_test_params(cfg), device=device)
+        sharded = evaluate(model, ds, r50, **kw)["confusion"]
+        with parallel.local_only():
+            whole = evaluate(model, ds, r50, **kw)["confusion"]
+        out["eval"] = {"equal": bool((sharded == whole).all()),
+                       "pixels": int(sharded.sum())}
+        parallel.barrier()
+    finally:
+        torch.save(out, out_path)
+        parallel.shutdown_distributed()
+
+
+def phase_ddp(ctx):
+    """Data parallelism on the card: the one-process float32 reference
+    step here, then 2 gloo ranks sharing cuda:0 (float32 step, a bf16
+    cycle, a sharded eval), then torchrun with an NCCL group of world 1."""
+    import shutil
+    import socket
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from gaiaseg_tpu_torch.ops.cuda import reset_launches
+    smi = ctx.get("nvidia_smi") or nvidia_smi_line()
+    tmp = tempfile.mkdtemp(prefix="gseg_ddp_")
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+    try:
+        # the one-process float32 step at batch 8 (the reference)
+        # one process x 8: float64 (the reference), float32 twice (cuDNN's
+        # own repeatability) and float32 with BN in the ranks' arithmetic
+        refs, peak = {}, {}
+        cfg8 = _ddp_cfg(DDP_WORLD * DDP_BATCH)
+        for name, dtype, rank_bn in (
+                ("float64", torch.float64, False),
+                ("float32", torch.float32, False),
+                ("float32_again", torch.float32, False),
+                ("float32_rank_bn", torch.float32, True)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = _one_step(cfg8, slice(None), "cuda", dtype,
+                                    rank_bn)
+            peak[name] = torch.cuda.max_memory_allocated() / 1e9
+            refs[name] = {"loss": loss, "grads": {k: g.cpu() for k, g in
+                                                  grads.items()}}
+            del grads
+        floor = {name: _grad_errors(refs[name]["loss"], refs[name]["grads"],
+                                    refs["float64"]["loss"],
+                                    refs["float64"]["grads"])
+                 for name in ("float32", "float32_again", "float32_rank_bn")}
+        floor["float32_again_vs_float32"] = _grad_errors(
+            refs["float32_again"]["loss"], refs["float32_again"]["grads"],
+            refs["float32"]["loss"], refs["float32"]["grads"])
+        for name, e in floor.items():
+            what = name.replace("_vs_", " vs ") if "_vs_" in name \
+                else f"{name} vs float64"
+            print(f"[ddp] one process x {DDP_WORLD * DDP_BATCH}, MAX step, "
+                  f"{what}: loss rel {e['loss_rel']:.1e}, grad global "
+                  f"{e['global_rel']:.2e}, median "
+                  f"{e['median_grad_rel']:.1e}, worst "
+                  f"{e['worst_grad_rel']:.1e} ({e['worst_tensor']})")
+        print(f"[ddp] peak memory GB of the one-process steps: {peak}")
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({k: refs[k] for k in ("float64", "float32")}, ref_path)
+        del refs
+        torch.cuda.empty_cache()
+
+        # 2 ranks on cuda:0 over gloo
+        spawn = mp.get_context("spawn")
+        port = free_port()
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DDP_WORLD)]
+        procs = [spawn.Process(target=_ddp_rank, args=(
+            r, DDP_WORLD, port, tmp, ref_path, outs[r],
+            _ddp_cfg(DDP_BATCH).to_dict(), "cuda", (1024, 2048)))
+            for r in range(DDP_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(DDP_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+        check(all(p.exitcode == 0 for p in procs),
+              f"ddp: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        steps = {k: ranks[0][k] for k in ("float64", "float32")}
+        for name, e in steps.items():
+            print(f"[ddp] 2 ranks x {DDP_BATCH}, MAX step, {name} vs one "
+                  f"process x {DDP_WORLD * DDP_BATCH} in float64: loss rel "
+                  f"{e['loss_rel']:.1e} ({name} one process: "
+                  f"{e['loss_vs_one_process']:.1e}), grad global "
+                  f"{e['global_rel']:.2e}, median {e['median_grad_rel']:.1e},"
+                  f" worst {e['worst_grad_rel']:.1e} ({e['worst_tensor']})")
+
+        sums = ranks[0]["checksums"]
+        check(sums[0] == sums[1] and ranks[1]["checksums"] == sums,
+              "ddp: weights, BN statistics or momenta differ across ranks")
+        for r, res in enumerate(ranks):
+            names = [h["arch"] for h in res["history"]]
+            check(names == ["MAX", "MIN", "R101", "R77", "R50"]
+                  + ["random"] * 3, f"ddp: rank {r} arch sequence {names}")
+            check(all(math.isfinite(h["loss"]) for h in res["history"]),
+                  f"ddp: rank {r} non-finite loss")
+            for k in ("resize_ce_fwd", "resize_ce_bwd"):
+                check(res["launches"][k] == 2 * DDP_ITERS,
+                      f"ddp: rank {r} {k} launched {res['launches'][k]} "
+                      f"times in {DDP_ITERS} iterations (want "
+                      f"{2 * DDP_ITERS})")
+            check(res["eval"]["equal"] and res["eval"]["pixels"]
+                  == DDP_EVAL_RECORDS * 1024 * 2048,
+                  f"ddp: rank {r} sharded eval {res['eval']}")
+        check(ranks[0]["files"] == ["history.json", f"iter_{DDP_ITERS}.pth",
+                                    "latest.pth"],
+              f"ddp: work dir holds {ranks[0]['files']}")
+        check([h["loss"] for h in ranks[0]["history"]]
+              == [h["loss"] for h in ranks[1]["history"]],
+              "ddp: the ranks logged different global losses")
+        for r, res in enumerate(ranks):
+            print(f"[ddp] rank {r}: bf16 cycle step ms " + ", ".join(
+                f"{h['arch']} {h['step_ms']:.1f}" for h in res["history"])
+                + f"; gradient all-reduce ms " + ", ".join(
+                f"{ms:.1f}" for ms in res["reduce_ms"]) + " for MB "
+                + ", ".join(f"{mb:.1f}" for mb in res["reduce_mb"])
+                + f"; K1/K2 {res['launches']['resize_ce_fwd']}/"
+                f"{res['launches']['resize_ce_bwd']}")
+        print(f"[ddp] weights, BN statistics and momenta equal on both ranks "
+              f"({len(sums[0])} checksums); one checkpoint (rank 0): "
+              f"{ranks[0]['files']}; sharded eval of {DDP_EVAL_RECORDS} "
+              f"1024x2048 records at R50 == one process; on {smi}")
+
+        # torchrun, an NCCL group of world size 1, the train CLI
+        work = os.path.join(tmp, "nccl")
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "1", "--master_port", str(free_port()),
+               "-m", "gaiaseg_tpu_torch.tools.train_supernet", FLAGSHIP,
+               "--max-iters", str(DDP_ITERS), "--work-dir", work,
+               "--cfg-options", "data.samples_per_gpu=8",
+               "log_config.interval=1", "cudnn_benchmark=false",
+               "data.train=" + json.dumps(
+                   _flagship_cfg()["data"]["train"])]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=DDP_TIMEOUT_S,
+                             env={**os.environ, "PYTHONPATH": REPO})
+        nccl_s = time.perf_counter() - t0
+        check(run.returncode == 0, f"ddp: torchrun rc {run.returncode}:\n"
+              f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        check("process group: backend nccl, rank 0 of 1" in run.stdout,
+              f"ddp: torchrun did not report an nccl group:\n"
+              f"{run.stdout[-2000:]}")
+        with open(os.path.join(work, "history.json")) as f:
+            nccl_hist = json.load(f)["loss"]
+        check(len(nccl_hist) == DDP_ITERS and all(
+            math.isfinite(h["loss"]) for h in nccl_hist),
+            f"ddp: torchrun losses {[h['loss'] for h in nccl_hist]}")
+        print(f"[ddp] torchrun --nproc_per_node 1: backend nccl, world 1, "
+              f"{DDP_ITERS} flagship iterations at batch 8 in {nccl_s:.1f}s, "
+              f"losses finite ({nccl_hist[0]['loss']:.4f} -> "
+              f"{nccl_hist[-1]['loss']:.4f})")
+        e64, e32 = steps["float64"], steps["float32"]
+        check(e64["loss_rel"] <= DDP_F64_RTOL
+              and e64["worst_grad_rel"] <= DDP_F64_RTOL,
+              f"ddp: float64 2x{DDP_BATCH} vs 1x{DDP_WORLD * DDP_BATCH}: "
+              f"loss rel {e64['loss_rel']:.1e}, worst grad "
+              f"{e64['worst_grad_rel']:.1e} ({e64['worst_tensor']})")
+        limit = DDP_F32_FLOOR_RATIO * floor["float32"]["global_rel"]
+        check(e32["loss_vs_one_process"] <= F32_LOSS_RTOL
+              and e32["global_rel"] <= limit,
+              f"ddp: float32 2x{DDP_BATCH}: loss rel "
+              f"{e32['loss_vs_one_process']:.1e} to one process, grad "
+              f"{e32['global_rel']:.2e} from float64 (limit {limit:.2e})")
+        ctx["ddp"] = {"steps": steps, "one_process": floor, "peak_gb": peak,
+                      "nccl_world1": {
+            "seconds": nccl_s, "history": nccl_hist},
+            "ranks": [{k: v for k, v in res.items() if k != "checksums"}
+                      for res in ranks]}
+    finally:
+        reset_launches()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
 def _vit_cfg():
     from gaiaseg_tpu_torch.utils import Config
     cfg = Config.fromfile(VIT)
@@ -1973,7 +2346,7 @@ def main(argv) -> int:
                    "launches": ctx.get("launches"),
                    "train": ctx.get("train"), "profile": ctx.get("profile"),
                    "eval": ctx.get("eval"), "loop": ctx.get("loop"),
-                   "subnets": ctx.get("subnets"),
+                   "subnets": ctx.get("subnets"), "ddp": ctx.get("ddp"),
                    "flash_timings": ctx.get("flash_timings"),
                    "flash_forward": ctx.get("flash_forward"),
                    "flash_backward": ctx.get("flash_backward"),

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -21,14 +21,22 @@ class BatchLoader:
     """Batches a dataset of fixed-shape records into numpy stacks.
 
     ``shard_id``/``num_shards`` give per-process dataset sharding (in place
-    of DistributedSampler).
+    of DistributedSampler): shard ``i`` reads records ``i::num_shards``.
+    ``batch_part=(i, k)`` instead reads part ``i`` of ``k`` equal
+    contiguous parts of every batch of ``batch_size`` (the ranks of one
+    global batch: their parts together are the one-process batch).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = True,
                  shard_id: int = 0, num_shards: int = 1,
                  prefetch: int = 2, infinite: bool = False,
-                 index_only: bool = False):
+                 index_only: bool = False,
+                 batch_part: Tuple[int, int] = (0, 1)):
+        if batch_size % batch_part[1] or \
+                not 0 <= batch_part[0] < batch_part[1]:
+            raise ValueError(f"batch_part {batch_part} of a batch of "
+                             f"{batch_size}")
         self.dataset = dataset
         # index_only: yield {'idx'} batches without materializing pixels;
         # consumers that own a device-resident cache read it in place
@@ -42,6 +50,7 @@ class BatchLoader:
         self.num_shards = num_shards
         self.prefetch = prefetch
         self.infinite = infinite
+        self.batch_part = batch_part
         self._epoch = 0
 
     def _indices(self) -> np.ndarray:
@@ -54,6 +63,12 @@ class BatchLoader:
         return idx
 
     def _stack(self, chunk, pad_count: int = 0) -> Dict[str, np.ndarray]:
+        i, k = self.batch_part
+        if k > 1:       # this part's rows, and the padding among them
+            lo, hi = i * len(chunk) // k, (i + 1) * len(chunk) // k
+            real = len(chunk) - pad_count
+            pad_count = hi - lo - max(min(hi, real) - lo, 0)
+            chunk = chunk[lo:hi]
         if self.index_only:
             batch = {"idx": np.ascontiguousarray(chunk, np.int32)}
             if pad_count:

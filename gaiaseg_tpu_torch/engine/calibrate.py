@@ -12,6 +12,10 @@ mode under ``torch.no_grad()`` on train records read through a shuffled
 ``BatchLoader`` and normalized with the test pipeline's mean and std, then
 divides out the ``1 - d^k`` share of the reset values. The decay ``d`` is
 read from the modules (``1 - momentum``), not assumed to be 0.9.
+
+Across ranks, rank 0 calibrates alone (its collectives off) on the records
+one process would read, and every rank takes its statistics by broadcast,
+so all ranks hold the one-process statistics bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from ..data.loader import BatchLoader
 from ..data.pipeline_cfg import TestPipelineParams
 from ..data.transforms import gather_prepare_eval_batch, prepare_eval_batch
 from ..ops.dynamic_layers import DynBatchNorm
+from ..parallel.distributed import (broadcast_tensors, data_parallel,
+                                    local_only)
 from .numerics import autocast
 
 # The distiller's frozen teacher: its statistics are trained values that
@@ -108,7 +114,18 @@ def calibrate_bn(model, dataset, arch, *, num_batches: int = 16,
     """Re-estimate ``model``'s BN statistics for ``arch`` from
     ``num_batches`` forward passes in train mode (no parameter changes);
     returns ``model``. The caller keeps the new statistics or puts back the
-    ones it saved with ``bn_stats``. ``device`` defaults to the model's."""
+    ones it saved with ``bn_stats``. ``device`` defaults to the model's.
+    Across ranks: rank 0's calibration, broadcast to all."""
+    rank, world = data_parallel()
+    if world > 1:
+        if rank == 0:
+            with local_only():
+                calibrate_bn(model, dataset, arch, num_batches=num_batches,
+                             batch_size=batch_size, test_params=test_params,
+                             device=device, seed=seed)
+        broadcast_tensors([t for _, m in bn_modules(model)
+                           for t in (m.running_mean, m.running_var)])
+        return model
     test_params = test_params or TestPipelineParams()
     param = next(model.parameters())
     device = param.device if device is None else device

@@ -15,6 +15,11 @@ read in place (``gather_prepare_eval_batch``).
 ``evaluate_population`` reads each batch once and runs every arch of the
 population on it, one sliced subnet after another where the JAX package
 ``vmap``s a stacked arch; each arch may bring its own BN statistics.
+
+Across ranks (JAX ``evaluate.py:91-92, 121-125``) each rank sweeps its
+shard of the records (``i::W``, its own padded tail ignored) and the int64
+confusion matrices are summed, so every rank returns the one-process
+metrics exactly; the archs come from rank 0.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from ..data.staging import DeviceFeed, take
 from ..data.transforms import gather_prepare_eval_batch, prepare_eval_batch
 from ..models.arch_util import encode_arch
 from ..ops.resize import resize_bilinear
+from ..parallel.distributed import (all_reduce_sum, broadcast_object,
+                                    data_parallel)
 from ..utils.device import resolve_device
 from .calibrate import BNStats, bn_stats, load_bn_stats
 from .numerics import autocast
@@ -64,11 +71,13 @@ def _predict(model, img: torch.Tensor, arch: Dict[str, Any],
 
 def _eval_batches(dataset, batch_size: int, test_params: TestPipelineParams,
                   device: torch.device) -> Iterator:
-    """``(img, gt, n_real)`` batches of ``dataset`` in order, normalized on
-    the device by a prefetch thread; the padded tail's labels are 255.
-    The iterator's ``close()`` stops the thread."""
+    """``(img, gt, n_real)`` batches of ``dataset`` in order (this rank's
+    shard), normalized on the device by a prefetch thread; the padded
+    tail's labels are 255. The iterator's ``close()`` stops the thread."""
     cache = dataset if isinstance(dataset, DeviceCachedDataset) else None
+    rank, world = data_parallel()
     loader = BatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
+                         shard_id=rank, num_shards=world,
                          index_only=cache is not None)
     feed = DeviceFeed(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -100,7 +109,13 @@ def _eval_batches(dataset, batch_size: int, test_params: TestPipelineParams,
     return device_prefetch(iter(loader), prep)
 
 
-def _result(evaluator: SegEvaluator) -> Dict[str, Any]:
+def _result(evaluator: SegEvaluator, device: torch.device) -> Dict[str, Any]:
+    """Metrics and confusion matrix, the ranks' matrices summed first."""
+    if data_parallel()[1] > 1:
+        c = evaluator.num_classes
+        cm = evaluator.cm if evaluator.cm is not None else torch.zeros(
+            (c, c), dtype=torch.int64, device=device)
+        evaluator.cm = all_reduce_sum(cm)
     return dict(evaluator.evaluate(), confusion=evaluator.confusion())
 
 
@@ -135,7 +150,7 @@ def evaluate(model, dataset, arch: Dict[str, Any], *,
     finally:
         batches.close()
         model.train(was_training)
-    return _result(evaluator)
+    return _result(evaluator, device)
 
 
 def cross_arch_evaluate(model, val_sampler, dataset,
@@ -148,6 +163,7 @@ def cross_arch_evaluate(model, val_sampler, dataset,
     ``seconds``."""
     results: Dict[str, Dict[str, Any]] = {}
     for i, meta in enumerate(val_sampler.traverse()):
+        meta = broadcast_object(meta)
         name = meta.get("name", val_sampler.anchor_name(i))
         t0 = time.perf_counter()
         metrics = evaluate(model, dataset, encode_arch(max_arch, meta),
@@ -180,6 +196,7 @@ def evaluate_population(model, dataset, archs: Sequence[Dict[str, Any]], *,
     device = resolve_device(device)
     test_params = test_params or TestPipelineParams()
     ratios = _ratios(test_params)
+    archs = broadcast_object(list(archs))
     if stats is not None and len(stats) != len(archs):
         raise ValueError(f"{len(stats)} BN statistics for {len(archs)} archs")
     evaluators = [SegEvaluator(model.num_classes,
@@ -202,4 +219,4 @@ def evaluate_population(model, dataset, archs: Sequence[Dict[str, Any]], *,
         if own is not None:
             load_bn_stats(model, own)
         model.train(was_training)
-    return [_result(e) for e in evaluators]
+    return [_result(e, device) for e in evaluators]

@@ -16,6 +16,14 @@ Numerics on the card follow the JAX model: bf16 compute with float32
 parameters (``torch.autocast`` on CUDA), float32 on the CPU. Every
 parameter gets a gradient on every step (zeros where the subnet does not
 reach it), so weight decay and momentum move all of them as optax does.
+
+Under a process group of W ranks (``parallel.distributed``) each rank
+takes its contiguous part of every global batch of W·B, with the
+augmentation drawn for the whole global batch; the arch comes from rank 0;
+BN and the loss span the ranks and the gradients are summed before the
+update, so the run computes what one process does at batch W·B (JAX's
+``global_batch``), which also scales the LR and the epoch schedule. Rank 0
+alone writes checkpoints, ``history.json`` and log lines.
 """
 from __future__ import annotations
 
@@ -40,6 +48,9 @@ from ..data.transforms import (augment_batch, draw_augment_params,
                                gather_augment_batch, prepare_eval_batch)
 from ..models.arch_util import encode_arch, model_max_arch
 from ..ops.dynamic_layers import frozen_bn_stats
+from ..parallel.distributed import (all_reduce_grads, barrier,
+                                    broadcast_object, data_parallel,
+                                    is_main_process, sum_over_ranks)
 from ..utils.device import resolve_device
 from .calibrate import bn_stats, calibrate_bn, load_bn_stats
 from .checkpoint import (latest_checkpoint, load_checkpoint, save_checkpoint,
@@ -74,13 +85,19 @@ def train_step(model, optimizer: torch.optim.Optimizer, img: torch.Tensor,
     ``max_norm`` when it is given. Returns the detached losses (and the
     gradient norm before clipping); nothing is read back to the host.
     ``update_stats=False`` is the JAX silent step: BN normalizes with the
-    batch statistics as always, and no running statistic changes."""
-    optimizer.zero_grad(set_to_none=False)
+    batch statistics as always, and no running statistic changes. Across
+    ranks the losses are this rank's shares of the global means, and the
+    gradients are summed over the ranks (in flat buckets) before the
+    zero-fill and the clip."""
+    # across ranks the gradients start unset, so the reduction carries only
+    # those this arch reaches (elastic depth leaves whole blocks without)
+    optimizer.zero_grad(set_to_none=data_parallel()[1] > 1)
     stats = contextlib.nullcontext() if update_stats \
         else frozen_bn_stats(model)
     with stats, autocast(img.device):
         total, logs = model.forward_train(img, gt, arch, generator)
     total.backward()
+    all_reduce_grads(model.parameters())
     for p in model.parameters():
         if p.grad is None:   # outside this subnet: decay + moments only
             p.grad = torch.zeros_like(p)
@@ -146,7 +163,11 @@ def make_train_feed(dataset, pipe, batch_size: int, num_classes: int,
     ``BatchLoader`` (shuffled by epoch, drop_last, infinite, in the JAX
     package's order); the thread draws each batch's augmentation
     parameters from a CPU generator seeded by ``seed`` (in batch order, so
-    the draws do not depend on timing), uploads the records as uint8
+    the draws do not depend on timing). Across W ranks ``batch_size`` is
+    this rank's part: the loader runs over global batches of W·B and reads
+    the rank's contiguous part, and every rank draws the parameters of the
+    whole global batch and keeps its rows, so each sample is augmented as
+    in one process at batch W·B. The thread uploads the records as uint8
     (labels too when ``num_classes <= 255``) and runs ``augment_batch`` on
     the device. A device-cached dataset is read in place
     (``gather_augment_batch``): only indices and parameters are uploaded.
@@ -156,9 +177,12 @@ def make_train_feed(dataset, pipe, batch_size: int, num_classes: int,
     augment's ~200, while the train step launches its own.
     bf16 images on the card, float32 on the CPU."""
     cache = dataset if isinstance(dataset, DeviceCachedDataset) else None
-    loader = BatchLoader(dataset, batch_size, shuffle=True, seed=seed,
-                         drop_last=True, infinite=True,
-                         index_only=cache is not None)
+    rank, world = data_parallel()
+    rows = slice(rank * batch_size, (rank + 1) * batch_size)
+    loader = BatchLoader(dataset, batch_size * world, shuffle=True,
+                         seed=seed, drop_last=True, infinite=True,
+                         index_only=cache is not None,
+                         batch_part=(rank, world))
     base = base_scale_of(pipe, dataset)
     ratio_range = (pipe.ratio_range[0] * base, pipe.ratio_range[1] * base)
     feed = DeviceFeed(device)
@@ -178,8 +202,10 @@ def make_train_feed(dataset, pipe, batch_size: int, num_classes: int,
                              norm["std"], **kw)
 
     def prep(batch):
-        params = draw_augment_params(gen, len(batch["idx"]), ratio_range,
+        params = draw_augment_params(gen, batch_size * world, ratio_range,
                                      pipe.flip_prob)
+        if world > 1:
+            params = {k: v[rows] for k, v in params.items()}
         if cache is not None:
             arrays = {"idx": np.asarray(batch["idx"], np.int64), **params}
         else:
@@ -282,6 +308,10 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
     """
     device = resolve_device(device)
     model.to(device).train()
+    world = data_parallel()[1]
+    main = is_main_process()
+    if not main:
+        log = None
     data_cfg = cfg.get("data") or {}
     if train_dataset is None:
         train_dataset = build_dataset(data_cfg["train"], device=device)
@@ -301,18 +331,19 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
     test_pipe = parse_test_pipeline((data_cfg.get("val") or {})
                                     .get("pipeline"))
     batch_size = int(data_cfg.get("samples_per_gpu", 2))
+    global_batch = batch_size * world
     epoch_iters, lr_config = resolve_epoch_schedule(
-        cfg, len(train_dataset), batch_size)
+        cfg, len(train_dataset), global_batch)
     max_iters = max_iters or epoch_iters or _max_iters(cfg)
 
     opt_cfg = dict(cfg.get("optimizer") or {"type": "SGD", "lr": 0.01})
-    opt_cfg["lr"] = scale_lr(opt_cfg.get("lr", 0.01), batch_size,
+    opt_cfg["lr"] = scale_lr(opt_cfg.get("lr", 0.01), global_batch,
                              cfg.get("lr_scaler"))
     schedule = build_lr_schedule(lr_config, opt_cfg["lr"], max_iters)
     optimizer = build_optimizer(model.parameters(), opt_cfg)
     max_norm = grad_clip_norm(cfg.get("optimizer_config"))
     max_arch = model_max_arch(cfg["model"])
-    if work_dir is not None:
+    if work_dir is not None and main:
         os.makedirs(work_dir, exist_ok=True)
     start = 0
     if resume_from is None and cfg.get("auto_resume") and work_dir:
@@ -338,9 +369,10 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
     max_enc = encode_arch(max_arch)
 
     def calibrate(num_batches: int) -> None:
-        """BN statistics re-estimated at the MAX arch from train records."""
+        """BN statistics re-estimated at the MAX arch from train records
+        (in batches of the global batch's size)."""
         calibrate_bn(model, train_dataset, max_enc, num_batches=num_batches,
-                     batch_size=batch_size, test_params=test_pipe,
+                     batch_size=global_batch, test_params=test_pipe,
                      device=device)
 
     meta_classes = list(getattr(train_dataset, "CLASSES", None) or [])
@@ -359,8 +391,8 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
             t0 = time.perf_counter()
             img, gt, ready = next(batches)
             take((img, gt), ready)
-            meta = train_sampler.sample() if train_sampler is not None \
-                else {}
+            meta = broadcast_object(train_sampler.sample()) \
+                if train_sampler is not None else {}
             arch = encode_arch(max_arch, meta)
             lr = schedule(it)
             set_learning_rate(optimizer, lr)
@@ -377,7 +409,7 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
                 history["val_loss"].append({"iter": it,
                                             "loss": val_phase.run()})
             if it % log_interval == 0:
-                row = window.close(it, log_interval * batch_size)
+                row = window.close(it, log_interval * global_batch)
                 history["loss"].append(row)
                 _say(log, f"iter {it}/{max_iters} arch={row['arch']} "
                      f"loss={row['loss']:.4f} lr={row['lr']:.3e} "
@@ -394,14 +426,16 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
                          f"in {time.perf_counter() - t:.4f}s")
                     calibrated = ckpt_calib >= eval_calib
                 path = osp.join(work_dir, f"iter_{it}.pth")
-                t = time.perf_counter()
-                save_checkpoint(path, model, optimizer, meta={
-                    "iter": it, "CLASSES": meta_classes,
-                    "PALETTE": getattr(train_dataset, "PALETTE", None),
-                    "max_arch": max_arch})
-                update_latest(work_dir, path)
-                _say(log, f"saved {path} ({osp.getsize(path) / 1e6:.1f} MB)"
-                     f" in {time.perf_counter() - t:.4f}s")
+                if main:
+                    t = time.perf_counter()
+                    save_checkpoint(path, model, optimizer, meta={
+                        "iter": it, "CLASSES": meta_classes,
+                        "PALETTE": getattr(train_dataset, "PALETTE", None),
+                        "max_arch": max_arch})
+                    update_latest(work_dir, path)
+                    _say(log, f"saved {path} ({osp.getsize(path) / 1e6:.1f}"
+                         f" MB) in {time.perf_counter() - t:.4f}s")
+                barrier()
             if val_dataset is not None and val_sampler is not None and \
                     it % eval_interval == 0:
                 saved = None
@@ -422,9 +456,10 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
                     for k, v in res.items()))
     finally:
         batches.close()     # stops the prefetch thread, drops staged batches
-    if work_dir is not None:
+    if work_dir is not None and main:
         with open(osp.join(work_dir, "history.json"), "w") as f:
             json.dump(history, f, indent=2, default=_json_default)
+    barrier()
     return TrainState(model, optimizer, it), history
 
 
@@ -454,11 +489,14 @@ class _Window:
 
     def close(self, it: int, images: int) -> Dict[str, Any]:
         """Sync the device, then read the clock (JAX ``_sync_window_clock``);
-        the row of the window that ends at iteration ``it``."""
+        the row of the window that ends at iteration ``it``. Across ranks
+        the losses are summed: each rank's is its share of the global
+        mean."""
         t_sync = time.perf_counter()
         names = list(self.comp)
-        vals = torch.stack(self.losses + [self.comp[k] for k in names]) \
-            .float().cpu().tolist() if self.losses else []
+        vals = sum_over_ranks(torch.stack(
+            self.losses + [self.comp[k] for k in names]).float()) \
+            .cpu().tolist() if self.losses else []
         t_now = time.perf_counter()
         self.step_s += t_now - t_sync
         n = len(self.losses)
@@ -478,15 +516,19 @@ class _ValPhase:
     """The val workflow's loss batches (JAX ``engine/train.py:626-679``):
     val records in order (infinite, the tail wrapped), normalized with the
     test pipeline, at archs drawn from a sampler built anew from the train
-    sampler's config (the val draws do not consume the train sampler's)."""
+    sampler's config (the val draws do not consume the train sampler's).
+    Across ranks each reads its part of every global batch, the arch comes
+    from rank 0 and the loss is the global batch's mean."""
 
     def __init__(self, model, dataset, batch_size, test_pipe, sampler_cfg,
                  max_arch, device, n_batches):
         self.model, self.max_arch, self.device = model, max_arch, device
         self.n_batches = n_batches
-        self.batches = iter(BatchLoader(dataset, batch_size, shuffle=False,
-                                        drop_last=False, infinite=True,
-                                        prefetch=0))
+        rank, world = data_parallel()
+        self.batches = iter(BatchLoader(dataset, batch_size * world,
+                                        shuffle=False, drop_last=False,
+                                        infinite=True, prefetch=0,
+                                        batch_part=(rank, world)))
         self.sampler = build_model_sampler(sampler_cfg) if sampler_cfg \
             else None
         self.mean = torch.tensor(test_pipe.mean, device=device)
@@ -506,12 +548,13 @@ class _ValPhase:
                         self.device), self.mean, self.std, dtype=self.dtype)
                 gt = torch.from_numpy(np.asarray(batch["gt"], np.int32)) \
                     .to(self.device)
-                meta = self.sampler.sample() if self.sampler is not None \
-                    else None
+                meta = broadcast_object(self.sampler.sample()) \
+                    if self.sampler is not None else None
                 with autocast(self.device):
                     _, logs = self.model.forward_train(
                         img, gt, encode_arch(self.max_arch, meta))
-                losses.append(float(logs["decode.loss_seg"]))
+                losses.append(float(sum_over_ranks(
+                    logs["decode.loss_seg"].float())))
         finally:
             self.model.train()
         return sum(losses) / len(losses)

@@ -12,6 +12,7 @@ import inspect
 import logging
 from typing import Any, Dict, Optional, Sequence
 
+from ..ops.dynamic_layers import DynBatchNorm
 from ..utils.registry import BACKBONES, HEADS, LOSSES, NECKS, SEGMENTORS
 
 logger = logging.getLogger("gaiaseg_tpu_torch")
@@ -57,17 +58,23 @@ def _build_filtered(registry, cfg: Dict[str, Any], **extra) -> Any:
     return cls(**kept)
 
 
-def _check_norm_cfg(cfg: Dict[str, Any]) -> None:
+def _with_stat_groups(module, cfg: Dict[str, Any]):
+    """Every ``DynBatchNorm`` of ``module`` takes ``norm_cfg.stat_groups``
+    (JAX ``builder.py:59-69`` passes it as ``bn_groups``); the reference's
+    ``group_size`` is accepted for config parity and keeps global
+    statistics."""
     nc = cfg.get("norm_cfg")
-    if isinstance(nc, dict) and int(nc.get("stat_groups", 1) or 1) > 1:
-        raise NotImplementedError(
-            "norm_cfg.stat_groups > 1 (per-group BN statistics) waits for "
-            "the DDP/SyncBN slice of the port")
+    groups = int(nc.get("stat_groups", 1) or 1) if isinstance(nc, dict) \
+        else 1
+    if groups > 1:
+        for m in module.modules():
+            if isinstance(m, DynBatchNorm):
+                m.stat_groups = groups
+    return module
 
 
 def build_backbone(cfg: Dict[str, Any]):
-    _check_norm_cfg(cfg)
-    return _build_filtered(BACKBONES, cfg)
+    return _with_stat_groups(_build_filtered(BACKBONES, cfg), cfg)
 
 
 def _in_channels(cfg: Dict[str, Any], channels: Sequence[int],
@@ -95,13 +102,12 @@ def build_neck(cfg: Dict[str, Any], backbone_channels: Sequence[int]):
 def build_head(cfg: Dict[str, Any], backbone_channels: Sequence[int]):
     """Build a decode head; its MAX ``in_channels`` follow from the
     backbone's (or neck's) output channels at ``in_index``."""
-    _check_norm_cfg(cfg)
     idx = cfg.get("in_index", -1)
     if cfg.get("input_transform") == "multiple_select":
         idx = [int(i) for i in idx]
-    return _build_filtered(HEADS, cfg, in_index=idx,
-                           in_channels=_in_channels(cfg, backbone_channels,
-                                                    idx))
+    return _with_stat_groups(_build_filtered(
+        HEADS, cfg, in_index=idx,
+        in_channels=_in_channels(cfg, backbone_channels, idx)), cfg)
 
 
 def build_loss(cfg: Dict[str, Any]):

@@ -12,6 +12,7 @@ from typing import Any
 
 import torch
 
+from ...parallel.distributed import data_parallel, sum_over_ranks
 from ...utils.registry import LOSSES
 
 
@@ -19,15 +20,20 @@ def softmax_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
                           ignore_index: int = 255,
                           avg_non_ignore: bool = True) -> torch.Tensor:
     """Mean softmax CE over the pixels (over the non-ignored ones with
-    ``avg_non_ignore``), computed in float32."""
+    ``avg_non_ignore``), computed in float32. Across ranks the mean is the
+    global batch's: this rank returns its share, and the ranks' shares add
+    up to it."""
     valid = label != ignore_index
     safe = torch.where(valid, label, 0).long()
     logp = torch.log_softmax(logits.float(), dim=1)
     nll = -logp.gather(1, safe[:, None]).squeeze(1)
     w = valid.float()
     if avg_non_ignore:
-        return (nll * w).sum() / w.sum().clamp_min(1.0)
-    return (nll * w).mean()
+        return (nll * w).sum() / sum_over_ranks(w.sum()).clamp_min(1.0)
+    world = data_parallel()[1]
+    if world == 1:
+        return (nll * w).mean()
+    return (nll * w).sum() / (w.numel() * world)
 
 
 @LOSSES.register_module()

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...parallel.distributed import sum_over_ranks
 from . import build
 from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 
@@ -235,13 +236,17 @@ def resize_ce_grad_mid(mid: torch.Tensor, label: torch.Tensor,
 
 class _FusedResizeCE(torch.autograd.Function):
     """Custom VJP of ``gaiaseg_tpu`` ``fused_resize_ce``: K1 forward, K2
-    backward, the width interpolation and its adjoint as matmuls."""
+    backward, the width interpolation and its adjoint as matmuls. Across
+    ranks the divisor is the valid count of the global batch: each rank's
+    loss is its share of the global mean, and the gradients summed over
+    the ranks are the global mean's."""
 
     @staticmethod
     def forward(ctx, logits, label, out_hw, ignore_index):
         H, W = out_hw
         mid = width_interp(logits, W)
         loss_sum, valid_sum = resize_ce_sums(mid, label, H, ignore_index)
+        valid_sum = sum_over_ranks(valid_sum)
         ctx.save_for_backward(mid, label, valid_sum)
         ctx.out_h, ctx.ignore_index = H, ignore_index
         ctx.logits_dtype, ctx.src_w = logits.dtype, logits.shape[3]
@@ -275,9 +280,10 @@ def fused_resize_ce_reference(logits: torch.Tensor, label: torch.Tensor,
                               out_hw: Tuple[int, int],
                               ignore_index: int = 255) -> torch.Tensor:
     """Plain torch version of ``fused_resize_ce`` end to end: the separable
-    float32 interpolation, logsumexp and pick, differentiated by autograd."""
+    float32 interpolation, logsumexp and pick, differentiated by autograd
+    (across ranks, this rank's share of the global mean)."""
     mid = width_interp(logits, int(out_hw[1]))
     loss_sum, valid_sum = resize_ce_sums_reference(mid, label,
                                                    int(out_hw[0]),
                                                    ignore_index)
-    return loss_sum / valid_sum.clamp_min(1.0)
+    return loss_sum / sum_over_ranks(valid_sum).clamp_min(1.0)

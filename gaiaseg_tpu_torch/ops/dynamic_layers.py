@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import all_reduce_sum, data_parallel
+
 
 def _pair(v) -> Tuple[int, int]:
     if isinstance(v, (tuple, list)):
@@ -91,13 +93,23 @@ class DynBatchNorm(nn.Module):
     ``update_stats=False`` (set by ``frozen_bn_stats``) is the JAX silent
     step's ``mutable=[]``: in train mode it still normalizes with the batch
     statistics, and no running statistic changes.
+
+    Across ranks (``parallel.data_parallel()`` world W > 1) the train-mode
+    statistics are those of the global batch, as the JAX module's under a
+    sharded batch: ``sync_batch_norm``. ``stat_groups=G`` (JAX ``:242``,
+    ``:273-296``) takes them per contiguous group of ``global batch / G``
+    samples instead, the running statistics tracking the group average; a
+    global batch that G does not divide falls back to global statistics,
+    as in JAX. Under W ranks a group must lie inside one rank (G a multiple
+    of W). Eval mode reads the running statistics and calls no collective.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, stat_groups: int = 1):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.stat_groups = int(stat_groups)
         self.update_stats = True
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -106,14 +118,69 @@ class DynBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
-        if self.training and x.numel() == c:
-            return self._one_value_per_channel(x)
-        if self.training and not self.update_stats:
-            return F.batch_norm(x, None, None, self.weight[:c], self.bias[:c],
-                                True, 0.0, self.eps)
+        if self.training:
+            world = data_parallel()[1]
+            groups = self._local_groups(x.shape[0], world)
+            if groups:
+                return self._grouped(x, groups, world)
+            if world > 1:
+                run = (self.running_mean[:c], self.running_var[:c]) \
+                    if self.update_stats else (None, None)
+                return sync_batch_norm(x, self.weight[:c], self.bias[:c],
+                                       *run, self.momentum, self.eps)
+            if x.numel() == c:
+                return self._one_value_per_channel(x)
+            if not self.update_stats:
+                return F.batch_norm(x, None, None, self.weight[:c],
+                                    self.bias[:c], True, 0.0, self.eps)
         return F.batch_norm(x, self.running_mean[:c], self.running_var[:c],
                             self.weight[:c], self.bias[:c], self.training,
                             self.momentum, self.eps)
+
+    def _local_groups(self, batch: int, world: int) -> int:
+        """The statistic groups in this rank's ``batch`` (0: none, the
+        statistics are global)."""
+        g = self.stat_groups
+        if g <= 1 or (batch * world) % g:
+            return 0
+        if g % world:
+            raise ValueError(
+                f"stat_groups={g} over {world} ranks of batch {batch}: a "
+                "group must lie inside one rank (stat_groups a multiple of "
+                "the world size)")
+        return g // world
+
+    def _grouped(self, x: torch.Tensor, groups: int,
+                 world: int) -> torch.Tensor:
+        """Per-group statistics (JAX ``:273-285``), in float32 and
+        two-pass; the running statistics move by the average over all
+        ``groups * world`` groups."""
+        n, c = x.shape[:2]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xg = xf.reshape(groups, n // groups, *xf.shape[1:])
+        dims = [1] + list(range(3, xg.dim()))
+        var, mean = torch.var_mean(xg, dim=dims, unbiased=False)  # [g, C]
+        shape = (groups, 1, c) + (1,) * (xg.dim() - 3)
+        inv = torch.rsqrt(var + self.eps).reshape(shape)
+        y = (xg - mean.reshape(shape)) * inv
+        y = y * self.weight[:c].reshape(shape[1:]) \
+            + self.bias[:c].reshape(shape[1:])
+        if self.update_stats:
+            per = xg[0].numel() // c
+            with torch.no_grad():
+                stats = all_reduce_sum(torch.stack(
+                    [mean.sum(0), var.sum(0)])) / (groups * world)
+                self._update_running(stats[0], stats[1]
+                                     * (per / max(per - 1.0, 1.0)))
+        return y.reshape(x.shape).to(x.dtype)
+
+    def _update_running(self, mean: torch.Tensor,
+                        unbiased_var: torch.Tensor) -> None:
+        c, m = mean.shape[0], self.momentum
+        self.running_mean[:c].mul_(1 - m).add_(
+            mean.to(self.running_mean.dtype), alpha=m)
+        self.running_var[:c].mul_(1 - m).add_(
+            unbiased_var.to(self.running_var.dtype), alpha=m)
 
     def _one_value_per_channel(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode on one value a channel (batch 1 through a 1x1 pool):
@@ -131,6 +198,81 @@ class DynBatchNorm(nn.Module):
                     mean.flatten().to(self.running_mean.dtype), alpha=m)
                 self.running_var[:c].mul_(1 - m)
         return y
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Batch norm over the batch of every rank (the JAX module's global
+    statistics under a sharded batch). Forward: each rank's count, mean
+    and sum of squared deviations per channel (two-pass, in float32) go
+    into its row of a ``[W, 3, C]`` buffer; one all-reduce, and every rank
+    combines the rows in rank order (Chan et al.), so all hold the same
+    statistics. The running variance is unbiased by the global
+    ``n / max(n - 1, 1)``. Backward: one all-reduce of ``[sum dy, sum dy *
+    xhat]``; the weight and bias gradients are this rank's share, summed
+    with the other gradients after the backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum,
+                eps):
+        rank, world = data_parallel()
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        var_r, mean_r = torch.var_mean(xf, dim=dims, unbiased=False)
+        rows = xf.new_zeros(world, 3, c)
+        rows[rank, 0] = x.numel() // c
+        rows[rank, 1] = mean_r
+        rows[rank, 2] = var_r * (x.numel() // c)
+        count, means, m2 = all_reduce_sum(rows).unbind(1)     # [W, C] each
+        n = count.sum(0)
+        mean = (count * means).sum(0) / n
+        var = (m2.sum(0) + (count * (means - mean).square()).sum(0)) / n
+        invstd = torch.rsqrt(var + eps)
+        if running_mean is not None:
+            nn_ = float(n[0])
+            running_mean.mul_(1 - momentum).add_(
+                mean.to(running_mean.dtype), alpha=momentum)
+            running_var.mul_(1 - momentum).add_(
+                (var * (nn_ / max(nn_ - 1.0, 1.0))).to(running_var.dtype),
+                alpha=momentum)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xhat = (xf - mean.reshape(shape)) * invstd.reshape(shape)
+        y = xhat * weight.reshape(shape) + bias.reshape(shape)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n = float(n[0])
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xhat = (x.to(invstd.dtype) - mean.reshape(shape)) \
+            * invstd.reshape(shape)
+        dyf = dy.to(invstd.dtype)
+        local = torch.cat([dyf.sum(dim=dims), (dyf * xhat).sum(dim=dims)])
+        sums = all_reduce_sum(local.clone()) / ctx.n
+        dx = (dyf - sums[:c].reshape(shape)
+              - xhat * sums[c:].reshape(shape)) \
+            * (weight * invstd).reshape(shape)
+        return (dx.to(x.dtype), local[c:].to(weight.dtype),
+                local[:c].to(weight.dtype), None, None, None, None)
+
+
+def sync_batch_norm(x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor,
+                    running_mean: Optional[torch.Tensor] = None,
+                    running_var: Optional[torch.Tensor] = None,
+                    momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+    """Train-mode batch norm of ``x`` ``[N, C, ...]`` with statistics over
+    every rank's batch (``parallel.data_parallel()``; one process: its own
+    batch). ``running_mean``/``running_var`` (views of the active prefix)
+    move by ``momentum`` when given; None leaves them alone (the silent
+    step). Statistics in float32 (float64 for float64 input); the output
+    in ``x``'s dtype."""
+    return _SyncBatchNorm.apply(x, weight, bias, running_mean, running_var,
+                                momentum, eps)
 
 
 @contextlib.contextmanager

@@ -20,6 +20,11 @@ finishes, so a rerun skips the subnets already scored; the model space
 annotated with ``metric.<--metric-tag>`` goes to
 ``WD/test_supernet/metrics.json``. Runs on ``cuda`` unless ``--device
 cpu`` is given; the device is resolved before anything else.
+
+Under a process group (``python -m torch.distributed.run`` or the JAX
+flags, as ``train_supernet``) each rank sweeps its shard of the val set
+and the confusion matrices are summed; rank 0 chooses the subnets, keeps
+the sweep log and writes the files.
 """
 from __future__ import annotations
 
@@ -34,6 +39,9 @@ import time
 if __package__ in (None, ""):
     sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), "..",
                                 ".."))
+
+from gaiaseg_tpu_torch.tools.train_supernet import (  # noqa: E402
+    add_distributed_args, setup_distributed)
 
 logger = logging.getLogger("gaiaseg_tpu_torch")
 
@@ -59,22 +67,36 @@ def parse_args(argv=None):
     p.add_argument("--cfg-options", nargs="+", default=[],
                    help="key=value deep-merge overrides (dot keys; values "
                         "parsed as JSON where they parse)")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
-    """Returns the annotated model-space rows written to metrics.json."""
+    """Returns the annotated model-space rows written to metrics.json (on
+    every rank)."""
     args = parse_args(argv)
+    from gaiaseg_tpu_torch.parallel import shutdown_distributed
+    from gaiaseg_tpu_torch.utils import resolve_device
+
+    device = setup_distributed(args, resolve_device(args.device))
+    try:
+        return _sweep(args, device)
+    finally:
+        shutdown_distributed()
+
+
+def _sweep(args, device):
     from gaiaseg_tpu_torch.archspace import ModelSpace, build_sample_rule
     from gaiaseg_tpu_torch.data import build_dataset, parse_test_pipeline
     from gaiaseg_tpu_torch.engine import (bn_stats, calibrate_bn,
                                           configure_numerics, evaluate,
                                           evaluate_population, init_segmentor,
                                           load_bn_stats)
+    from gaiaseg_tpu_torch.parallel import broadcast_object, is_main_process
     from gaiaseg_tpu_torch.tools.train_supernet import cfg_options_to_dict
-    from gaiaseg_tpu_torch.utils import Config, SweepLog, resolve_device
+    from gaiaseg_tpu_torch.utils import Config, SweepLog
 
-    device = resolve_device(args.device)
+    main = is_main_process()
     configure_numerics()
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
@@ -93,13 +115,16 @@ def main(argv=None):
     dataset = build_dataset(cfg["data"]["val"], device=device)
     test_pipe = parse_test_pipeline(cfg["data"]["val"].get("pipeline"))
     out_dir = osp.join(args.work_dir, "test_supernet")
-    os.makedirs(out_dir, exist_ok=True)
-    sweep = SweepLog(osp.join(out_dir, "metrics.jsonl"))
     all_metas = list(metas)
-    metas = [m for m in metas if not sweep.done(m)]
-    if len(all_metas) != len(metas):
-        logger.info("restart: %d/%d subnets already scored, skipping",
-                    len(all_metas) - len(metas), len(all_metas))
+    sweep = None
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
+        sweep = SweepLog(osp.join(out_dir, "metrics.jsonl"))
+        metas = [m for m in metas if not sweep.done(m)]
+        if len(all_metas) != len(metas):
+            logger.info("restart: %d/%d subnets already scored, skipping",
+                        len(all_metas) - len(metas), len(all_metas))
+    all_metas, metas = broadcast_object((all_metas, metas))
     calib_ds = build_dataset(cfg["data"]["train"], device=device) \
         if args.bn_calibrate else None
     own = bn_stats(seg.model)
@@ -130,6 +155,8 @@ def main(argv=None):
                 load_bn_stats(seg.model, stats[0])
                 results = [evaluate(seg.model, dataset, archs[0], **eval_kw)]
             dt = time.perf_counter() - t0
+            if sweep is None:
+                continue
             for m, r in zip(chunk, results):
                 r.pop("confusion")
                 sweep.record(m, r)
@@ -139,12 +166,14 @@ def main(argv=None):
                         3600.0 * len(chunk) / dt)
     finally:
         load_bn_stats(seg.model, own)
-    rows = sweep.annotated(all_metas, args.metric_tag)
-    out = osp.join(out_dir, "metrics.json")
-    with open(out, "w") as f:
-        json.dump(rows, f, indent=1, default=float)
-    logger.info("dumped annotated model space -> %s", out)
-    return rows
+    rows = None
+    if main:
+        rows = sweep.annotated(all_metas, args.metric_tag)
+        out = osp.join(out_dir, "metrics.json")
+        with open(out, "w") as f:
+            json.dump(rows, f, indent=1, default=float)
+        logger.info("dumped annotated model space -> %s", out)
+    return broadcast_object(rows)
 
 
 if __name__ == "__main__":

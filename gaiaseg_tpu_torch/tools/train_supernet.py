@@ -1,7 +1,14 @@
 #!/usr/bin/env python
-"""Supernet training CLI of the port (one GPU).
+"""Supernet training CLI of the port (one GPU, or one process per GPU).
 
     python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG --max-iters 8
+    # data parallel over the 8 cards of a host (each rank takes
+    # samples_per_gpu samples; the LR scales by the global batch)
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m gaiaseg_tpu_torch.tools.train_supernet CONFIG
+    # or with the JAX package's flags, one command per process
+    python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG \
+        --coordinator HOST:PORT --num-processes 2 --process-id 0
     # go on from the last checkpoint of a run (weights, BN statistics,
     # optimizer, iteration)
     python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG \
@@ -22,6 +29,12 @@ iteration; ``--load-from`` only its weights. The train data is the config's
 the card when it fits the budget. The config's train pipeline runs on the
 card. Runs on ``cuda`` unless ``--device cpu`` is given; the device is
 resolved before anything else, so a missing card fails first.
+
+Under a process group (torchrun's environment, or ``--num-processes`` > 1
+with ``--coordinator`` and ``--process-id``) each rank takes
+``cuda:LOCAL_RANK`` and the ``nccl`` backend, or ``gloo`` with ``--device
+cpu``; ``--dist-backend`` chooses. Rank 0 writes the checkpoints, the
+history and the log lines.
 """
 from __future__ import annotations
 
@@ -48,7 +61,40 @@ def parse_args(argv=None):
     p.add_argument("--cfg-options", nargs="+", default=[],
                    help="key=value deep-merge overrides (dot keys; values "
                         "parsed as JSON where they parse)")
+    add_distributed_args(p)
     return p.parse_args(argv)
+
+
+def add_distributed_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's process flags, plus the backend."""
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="default: nccl on cuda, gloo with --device cpu")
+
+
+def setup_distributed(args, device):
+    """Join the process group the arguments or torchrun's environment
+    describe; returns this rank's device (``cuda:LOCAL_RANK`` on the
+    card). One process: ``device`` as it is."""
+    from gaiaseg_tpu_torch.parallel import (current_backend,
+                                            initialize_distributed,
+                                            local_rank, process_count,
+                                            process_index)
+    import torch
+    backend = args.dist_backend or ("gloo" if device.type == "cpu"
+                                    else "nccl")
+    if not initialize_distributed(args.coordinator, args.num_processes,
+                                  args.process_id, backend=backend):
+        return device
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank())
+        torch.cuda.set_device(device)
+    print(f"process group: backend {current_backend()}, rank "
+          f"{process_index()} of {process_count()}, device {device}",
+          flush=True)
+    return device
 
 
 def cfg_options_to_dict(pairs):
@@ -65,13 +111,23 @@ def cfg_options_to_dict(pairs):
 
 def main(argv=None):
     args = parse_args(argv)
+    from gaiaseg_tpu_torch.parallel import shutdown_distributed
+    from gaiaseg_tpu_torch.utils import resolve_device
+
+    device = setup_distributed(args, resolve_device(args.device))
+    try:
+        return _train(args, device)
+    finally:
+        shutdown_distributed()
+
+
+def _train(args, device):
     import torch
 
     from gaiaseg_tpu_torch.engine import configure_numerics, train_segmentor
     from gaiaseg_tpu_torch.models import build_segmentor
-    from gaiaseg_tpu_torch.utils import Config, resolve_device
+    from gaiaseg_tpu_torch.utils import Config
 
-    device = resolve_device(args.device)
     configure_numerics()
     cfg = Config.fromfile(args.config)
     if args.cfg_options:

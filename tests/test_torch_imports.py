@@ -77,6 +77,12 @@ SUBNET_MODULES = {
 }
 
 
+# modules of the data-parallel slice
+PARALLEL_MODULES = {
+    "gaiaseg_tpu_torch.parallel", "gaiaseg_tpu_torch.parallel.distributed",
+}
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          capture_output=True, text=True, timeout=300,
@@ -84,7 +90,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.split(" ", 1)
     names = set(names.split(","))
-    want = VIT_MODULES | DATA_MODULES | LOOP_MODULES | SUBNET_MODULES
+    want = VIT_MODULES | DATA_MODULES | LOOP_MODULES | SUBNET_MODULES \
+        | PARALLEL_MODULES
     assert len(names) >= 30 and want <= names, want - names
     assert bad.strip() == "[]", bad
 
