@@ -73,7 +73,27 @@ Phases, each printing its own lines; any failure exits non-zero:
             the second subnet's first loss equal to that subnet fine-tuned
             alone from the checkpoint; a rerun that skips both and launches
             nothing.
-10. ddp     data parallelism on the one card (NCCL refuses two ranks on one
+10. deeplab the DeepLabV3+ supernet (``configs/_dynamic_/models/
+            deeplabv3plus_ar50to101v2.py``: widths 80/160/320/640, depths
+            4/6/29/4, output stride 8, separable ASPP 512 at 12/24/36, c1
+            48, FCN aux) and the v1c PSP supernet (deep stem 32/32/64) at
+            full width: K1 and K2 at this path's loss shapes (decode logits
+            128x256, row factor 4; aux 64x128, factor 8) against their
+            plain versions in float32 and bf16, each twice bit-equal, and
+            their times; one flagship sandwich cycle of the DeepLabV3+
+            supernet at batch 8 (K1 and K2 16 launches each), the warm
+            cycle, the least step times over three warm cycles, a profiled
+            MAX step, peak memory; its slide eval at R50 (crop 512x1024,
+            stride 341x683: 9 windows of two 1024x2048 records), seconds an
+            image in bf16 and the float32 mIoU within 1e-4 of the CPU's on
+            the same weights and records; one v1c MAX step (K1/K2 2/2);
+            extraction of the DeepLabV3+ R50 and of R50v1c and R101v1c
+            (``configs/local_examples/extract_subnet/psp_ar50to101_v1c_
+            extract.py``), each subnet's float32 logits on a 512x1024 image
+            bit-equal to the supernet's at its arch and its parameters
+            equal to the analytic count (the backbone's for DeepLabV3+,
+            whose head the FLOPs sweep does not count); MB, FLOPs.
+11. ddp     data parallelism on the one card (NCCL refuses two ranks on one
             device): 2 ranks over gloo sharing cuda:0, each at 4 of the
             flagship's batch of 8: one float32 MAX step (autocast and TF32
             off) against one process's batch-8 step from the same weights
@@ -86,7 +106,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             process's. Then ``python -m torch.distributed.run
             --nproc_per_node 1`` of the train CLI on the flagship for 8
             iterations: an NCCL group of world size 1, finite losses.
-11. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
+12. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
             (``flash_bwd_dq``) against their plain torch versions at the ViT
             shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025, 200
             (ragged tails), 1088 (a half-empty last 128-row block), 64 (one
@@ -95,11 +115,11 @@ Phases, each printing its own lines; any failure exits non-zero:
             beside the plain version, SDPA and the bound, K3 beside SDPA's
             forward and the port's whole attention backward
             (``attention_di`` + K4 + K5) beside SDPA's backward, in turns.
-12. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
+13. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
             the flash kernels equal the dense attention route (bf16, a
             batch of 8); two planted faults in dq (zeroed, halved) must
             fail that check.
-13. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
+14. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
             UPerNet supernet (``configs/_dynamic_/models/upernet_elastic_
             vit.py`` with ``with_cls_token=False``, so the flash gate opens)
             at full width, synthetic 512x512 records kept on the card
@@ -108,7 +128,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             K3-K5 must each launch once per active layer, K1/K2 twice per
             iteration. Then the cycle again for warm times, a profiled
             MAX step, and the least step times over three warm cycles.
-14. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
+15. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
             of four synthetic 512x1024 images, one forward an image) at the
             val anchors MIN and MAX, then flip, multi-scale (0.75, 1.0) and
             whole runs at MAX, seconds an image each; flash_fwd launches
@@ -143,8 +163,8 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
                    "upernet_elastic_vit.py")
 PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
-          "eval", "loop", "subnets", "ddp", "flash_kernels", "vit_segmentor",
-          "vit_train", "vit_eval")
+          "eval", "loop", "subnets", "deeplab", "ddp", "flash_kernels",
+          "vit_segmentor", "vit_train", "vit_eval")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
 REPO_KERNELS = ("fwd_tile", "fwd_tile_any", "bwd_tile", "bwd_tile_any",
@@ -1568,6 +1588,263 @@ def phase_subnets(ctx):
 
 
 # --------------------------------------------------------------------- #
+# the deeplab phase: the DeepLabV3+ and v1c supernets at full width
+DEEPLAB = os.path.join(REPO, "configs", "_dynamic_", "models",
+                       "deeplabv3plus_ar50to101v2.py")
+V1C = os.path.join(REPO, "configs", "_dynamic_", "models",
+                   "pspnet_ar50to101_v1c.py")
+V1C_EXTRACT = os.path.join(REPO, "configs", "local_examples",
+                           "extract_subnet", "psp_ar50to101_v1c_extract.py")
+DEEPLAB_BATCH = 8
+# K1/K2 at the DeepLabV3+ losses: decode logits at the c1 level (128x256,
+# row factor 4), aux logits at output stride 8 (64x128, row factor 8)
+DEEPLAB_LOSSES = {"dl_decode": (8, 19, 128, 256, 512, 1024),
+                  "dl_aux": (8, 19, 64, 128, 512, 1024)}
+SLIDE_RECORDS, SLIDE_SIZE = 2, (1024, 2048)   # crop 512x1024, 9 windows
+SLIDE_MIOU_ATOL = 1e-4     # float32 slide mIoU, card vs CPU: the same
+                           # sums in another order flip only near-ties
+
+
+def _model_cfg(path, base):
+    """``base`` (the flagship's train setup) with ``path``'s model."""
+    import copy
+    from gaiaseg_tpu_torch.utils import Config
+    cfg = copy.deepcopy(base)
+    cfg["model"] = Config.fromfile(path)["model"]
+    return cfg
+
+
+def _float32_slide_eval(model, ds, arch, test_params, device):
+    """``evaluate``'s confusion-matrix mIoU in float32 (the card's own
+    ``evaluate`` feeds bf16 images under autocast), one record at a time
+    through the model's test mode (slide)."""
+    import torch
+    from gaiaseg_tpu_torch.data import SegEvaluator
+    from gaiaseg_tpu_torch.data.transforms import prepare_eval_batch
+    mean = torch.tensor(test_params.mean, device=device)
+    std = torch.tensor(test_params.std, device=device)
+    evaluator = SegEvaluator(model.num_classes)
+    with torch.no_grad(), torch.autocast(device.type, enabled=False):
+        for i in range(len(ds)):
+            rec = ds[i]
+            img = prepare_eval_batch(
+                torch.from_numpy(rec["img"][None]).to(device), mean, std,
+                dtype=torch.float32)
+            gt = torch.from_numpy(rec["gt"][None].astype("int64")).to(device)
+            evaluator.update(model.simple_test(img, arch), gt)
+    return dict(evaluator.evaluate(), confusion=evaluator.confusion())
+
+
+def _float32_logits(model, img, arch):
+    import torch
+    with torch.no_grad(), torch.autocast("cuda", enabled=False):
+        return model.whole_inference(img, arch).float()
+
+
+def phase_deeplab(ctx):
+    """The DeepLabV3+ supernet (``configs/_dynamic_/models/deeplabv3plus_
+    ar50to101v2.py``: output stride 8, separable ASPP 512 at dilations
+    12/24/36, c1 48, FCN aux) and the v1c PSP supernet at full width:
+    K1/K2 at this path's loss shapes; one flagship sandwich cycle of the
+    DeepLabV3+ supernet (K1/K2 16/16), warm step times, a profiled MAX
+    step, peak memory; its slide eval at R50 (float32 mIoU equal to the
+    CPU's); one v1c MAX step; extraction of R50v1c, R101v1c and a
+    DeepLabV3+ R50 bit-equal to the supernets at the arch; the analytic
+    FLOPs and parameters of both configs."""
+    import torch
+    from gaiaseg_tpu_torch.archspace import (build_model_sampler,
+                                             get_model_complexity_info)
+    from gaiaseg_tpu_torch.data import SyntheticDataset, build_dataset
+    from gaiaseg_tpu_torch.engine import (build_optimizer, configure_numerics,
+                                          evaluate, extract_subnet,
+                                          prepare_batch, train_segmentor,
+                                          train_step)
+    from gaiaseg_tpu_torch.models import (build_segmentor, encode_arch,
+                                          model_max_arch)
+    from gaiaseg_tpu_torch.models.arch_util import canonical_arch
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from gaiaseg_tpu_torch.utils import Config
+    smi = ctx["nvidia_smi"]
+    out = ctx["deeplab"] = {}
+    configure_numerics()
+    torch.backends.cudnn.benchmark = False
+
+    # 1. K1/K2 at this path's loss shapes against their plain versions
+    errs = {"resize_ce_fwd": 0.0, "resize_ce_bwd": 0.0}
+    checks = out["kernel_checks"] = []
+    for name, shape in DEEPLAB_LOSSES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_case(name, shape, dtype, seed=1, errs=errs, log=checks)
+    timings = out["kernel_timings"] = {}
+    for name, shape in DEEPLAB_LOSSES.items():
+        _time_case(name, shape, timings)
+    out["max_abs_err"] = errs
+
+    # 2. one sandwich cycle of the DeepLabV3+ supernet, then warm cycles
+    base = _flagship_cfg()
+    base["data"]["samples_per_gpu"] = DEEPLAB_BATCH
+    cfg = _model_cfg(DEEPLAB, base)
+    model = _build_model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[deeplab] DeepLabV3+ supernet: {n_params / 1e6:.2f} M parameters"
+          ", stem 64, widths 80/160/320/640, depths 4/6/29/4, output stride "
+          "8, separable ASPP 512 at 12/24/36, c1 48, FCN aux; batch "
+          f"{DEEPLAB_BATCH} of 512x1024")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    cold = train_segmentor(model, cfg, device="cuda", max_iters=8, seed=0,
+                           log=lambda s: print(f"[deeplab] {s}"))[1]["loss"]
+    launches = out["launches"] = dict(LAUNCHES)
+    names = [r["arch"] for r in cold]
+    check(names == ["MAX", "MIN", "R101", "R77", "R50"] + ["random"] * 3,
+          f"deeplab: arch sequence {names}")
+    check(all(math.isfinite(r["loss"]) for r in cold),
+          f"deeplab: non-finite loss in {[r['loss'] for r in cold]}")
+    for k in ("resize_ce_fwd", "resize_ce_bwd"):
+        check(launches[k] == 2 * len(cold),
+              f"deeplab: {k} launched {launches[k]} times in {len(cold)} "
+              "iterations (want 2 per iteration)")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    warm = train_segmentor(model, cfg, device="cuda", max_iters=8,
+                           seed=0)[1]["loss"]
+    out["cold_history"], out["warm_history"] = cold, warm
+    print(f"[deeplab] launches {launches} over {len(cold)} iterations; peak "
+          f"memory {out['peak_mem_gb']:.2f} GB; on {smi}")
+    print("[deeplab] first cycle step ms: " + ", ".join(
+        f"{r['arch']} {r['step_ms']:.1f}" for r in cold))
+    out.update(_steady_step_ms(model, cfg, warm, "deeplab"))
+    out["profile"] = _profile_max_step(model, cfg, warm, "deeplab")
+
+    # 3. slide eval at R50: the card (bf16, timed), then float32 on the
+    # card and on the CPU with the same weights and records
+    model.eval()
+    max_arch = model_max_arch(cfg["model"])
+    anchors = {m["name"]: m for m in build_model_sampler(
+        cfg["val_sampler"]).traverse()}
+    r50 = encode_arch(max_arch, anchors["R50"])
+    ds = SyntheticDataset(length=SLIDE_RECORDS, size=SLIDE_SIZE,
+                          num_classes=19, seed=1, cells=8)
+    test_params = _test_params(cfg)
+    evaluate(model, ds, r50, test_params=test_params, device="cuda",
+             max_batches=1)                      # cuDNN's set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf16 = evaluate(model, ds, r50, test_params=test_params, device="cuda")
+    torch.cuda.synchronize()
+    slide_s = (time.perf_counter() - t0) / SLIDE_RECORDS
+    f32 = {"cuda": _float32_slide_eval(model, ds, r50, test_params,
+                                       torch.device("cuda"))}
+    cpu_model = build_segmentor(cfg["model"]).eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    t0 = time.perf_counter()
+    f32["cpu"] = _float32_slide_eval(cpu_model, ds, r50, test_params,
+                                     torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    d_miou = abs(f32["cuda"]["mIoU"] - f32["cpu"]["mIoU"])
+    differ = int((f32["cuda"]["confusion"] != f32["cpu"]["confusion"]).sum())
+    check(all(math.isfinite(r["mIoU"]) for r in (bf16, *f32.values()))
+          and d_miou <= SLIDE_MIOU_ATOL,
+          f"deeplab: slide mIoU float32 card {f32['cuda']['mIoU']} vs CPU "
+          f"{f32['cpu']['mIoU']}")
+    out["slide"] = {"s_per_image": slide_s, "mIoU_bf16": bf16["mIoU"],
+                    "mIoU_f32_cuda": f32["cuda"]["mIoU"],
+                    "mIoU_f32_cpu": f32["cpu"]["mIoU"],
+                    "confusion_cells_differ": differ, "cpu_s": cpu_s}
+    print(f"[deeplab] slide eval R50 (crop 512x1024, stride 341x683, 9 "
+          f"windows) on {SLIDE_RECORDS} records of 1024x2048: "
+          f"{slide_s:.3f} s an image (bf16), mIoU {bf16['mIoU']:.4f}; "
+          f"float32 mIoU card {f32['cuda']['mIoU']:.6f} vs CPU "
+          f"{f32['cpu']['mIoU']:.6f} (|d| {d_miou:.1e}, {differ} confusion "
+          f"cells differ; CPU {cpu_s:.1f}s)")
+
+    # 4. extraction of a DeepLabV3+ subnet, bit-equal to the supernet
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    img = torch.randn(1, 3, *SUBNET_IMAGE, generator=g, device="cuda")
+    extracted = out["extract"] = []
+
+    def extract(tag, model, cfg, meta):
+        arch = canonical_arch(model_max_arch(cfg["model"]), meta)
+        t0 = time.perf_counter()
+        sub_cfg, sub_sd, _ = extract_subnet(cfg["model"], model.state_dict(),
+                                            meta)
+        sub = build_segmentor(sub_cfg).cuda().eval()
+        sub.load_state_dict(sub_sd, strict=True)
+        secs = time.perf_counter() - t0
+        got = _float32_logits(sub, img, encode_arch(model_max_arch(sub_cfg)))
+        ref = _float32_logits(model, img, encode_arch(
+            model_max_arch(cfg["model"]), meta))
+        err = float((got - ref).abs().max())
+        mb = sum(t.numel() * t.element_size() for t in sub_sd.values()) / 1e6
+        n_sub = sum(p.numel() for p in sub.parameters())
+        only_bb = "ASPP" in cfg["model"]["decode_head"]["type"]
+        want = get_model_complexity_info(cfg["model"], arch,
+                                         (3, *SUBNET_IMAGE), only_bb)
+        n_check = sum(p.numel() for p in sub.backbone.parameters()) \
+            if only_bb else n_sub
+        check(err == 0.0 and torch.isfinite(got).all()
+              and n_check == want["params"],
+              f"deeplab: extracted {tag} logits max|d| {err:.2e} from the "
+              f"supernet's; {n_check} parameters, analytic {want['params']}")
+        extracted.append({"name": tag, "mb": mb, "seconds": secs,
+                          "params": n_sub, "flops": want["flops"],
+                          "max_abs_err": err})
+        print(f"[deeplab] extract {tag}: {mb:.1f} MB, {n_sub / 1e6:.2f} M "
+              f"parameters, {want['flops'] / 1e9:.1f} GFLOPs"
+              f"{' (backbone)' if only_bb else ''} at "
+              f"{SUBNET_IMAGE[0]}x{SUBNET_IMAGE[1]}, in {secs:.2f}s; float32"
+              " logits bit-equal to the supernet's at the arch")
+        del sub
+
+    extract("DeepLabV3+ R50", model, cfg, anchors["R50"])
+    del model
+    torch.cuda.empty_cache()
+
+    # 5. the v1c PSP supernet: one MAX step, then R50v1c and R101v1c
+    v1c_cfg = _model_cfg(V1C, base)
+    model = _build_model(v1c_cfg)
+    train_ds = build_dataset(v1c_cfg["data"]["train"])
+    img8, gt8 = prepare_batch([train_ds[i] for i in range(DEEPLAB_BATCH)],
+                              v1c_cfg["img_norm_cfg"], "cuda")
+    opt = build_optimizer(model.parameters(), v1c_cfg["optimizer"])
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = train_step(model.train(), opt, img8, gt8,
+                      encode_arch(model_max_arch(v1c_cfg["model"])))
+    loss = float(logs["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    v1c_launches = dict(LAUNCHES)
+    check(math.isfinite(loss) and v1c_launches["resize_ce_fwd"] == 2
+          and v1c_launches["resize_ce_bwd"] == 2,
+          f"deeplab: v1c MAX step loss {loss}, launches {v1c_launches}")
+    out["v1c_step"] = {"loss": loss, "first_step_ms": step_ms,
+                       "launches": v1c_launches}
+    print(f"[deeplab] v1c PSP supernet MAX step (deep stem 32/32/64, output "
+          f"stride 8) at batch {DEEPLAB_BATCH}: loss {loss:.4f}, first step "
+          f"{step_ms:.1f} ms, launches {v1c_launches}")
+    model.eval()
+    for meta in build_model_sampler(Config.fromfile(V1C_EXTRACT)
+                                    ["train_sampler"]).traverse():
+        extract(meta["name"], model, v1c_cfg, meta)
+
+    # 6. the analytic FLOPs of both configs at MAX and R50
+    flops = out["flops"] = {}
+    for tag, c in (("deeplabv3plus", cfg), ("v1c", v1c_cfg)):
+        for name, meta in (("MAX", None), ("R50", anchors["R50"])):
+            arch = canonical_arch(model_max_arch(c["model"]), meta)
+            flops[f"{tag} {name}"] = get_model_complexity_info(
+                c["model"], arch, (3, 512, 1024))
+    print("[deeplab] analytic FLOPs at 512x1024 (the ASPP head uncounted, "
+          "as in the JAX sweep): " + ", ".join(
+              f"{k} {v['flops'] / 1e9:.1f} G / {v['params'] / 1e6:.2f} M"
+              for k, v in flops.items()))
+    del model
+    torch.cuda.empty_cache()
+
+
 # the ddp phase: data parallelism on the one card (2 gloo ranks sharing
 # cuda:0; NCCL refuses two ranks on one device), then an NCCL process group
 # of world size 1 through torchrun
@@ -2317,7 +2594,7 @@ def main(argv) -> int:
               f"({e})", file=sys.stderr)
         return 1
     for path in (FLAGSHIP, VIT, ADE20K, FLOPS_CFG, RULES_CFG, FT_CFG,
-                 *EXTRACT_CFGS):
+                 *EXTRACT_CFGS, DEEPLAB, V1C, V1C_EXTRACT):
         if not os.path.isfile(path):
             print(f"chip_smoke: config missing: {path}", file=sys.stderr)
             return 1
@@ -2346,7 +2623,8 @@ def main(argv) -> int:
                    "launches": ctx.get("launches"),
                    "train": ctx.get("train"), "profile": ctx.get("profile"),
                    "eval": ctx.get("eval"), "loop": ctx.get("loop"),
-                   "subnets": ctx.get("subnets"), "ddp": ctx.get("ddp"),
+                   "subnets": ctx.get("subnets"),
+                   "deeplab": ctx.get("deeplab"), "ddp": ctx.get("ddp"),
                    "flash_timings": ctx.get("flash_timings"),
                    "flash_forward": ctx.get("flash_forward"),
                    "flash_backward": ctx.get("flash_backward"),

@@ -9,10 +9,11 @@ and keeps its own copies of the JAX-free host code it needs.
 - ``ops``: sliced dynamic layers (elasticity by prefix slices of MAX-shape
   parameters) and the hand-written CUDA kernels under ``ops/cuda`` with their
   sources in ``csrc/``.
-- ``models``: DynamicResNet, ElasticTransformer, the neck, PSP/FCN/UPer
-  heads, CE loss, the segmentor (whole and slide inference, flip and
+- ``models``: DynamicResNet (with the v1c deep stem, avg_down and
+  dilated stages), ElasticTransformer, the neck, PSP/FCN/UPer/ASPP and
+  DeepLabV3+ heads, CE (softmax or sigmoid, class weights, reductions), the segmentor (whole and slide inference, flip and
   multi-scale TTA).
-- ``engine``: SGD / AdamW + LR schedules, the supernet train step and the
+- ``engine``: SGD / Adam / AdamW + LR schedules and frozen stages, the supernet train step and the
   loop around it (BN calibration, ``.pth`` checkpoints and resume, the val
   workflow, the in-loop cross-arch eval), evaluation (one subnet, the
   anchors, a population), the inference API, weight conversion from the

@@ -8,7 +8,8 @@ from .inference import (Segmentor, inference_segmentor, init_segmentor,
                         show_result)
 from .label_surgery import remap_classifier
 from .optim import (build_lr_schedule, build_optimizer, clip_grad_norm,
-                    grad_clip_norm, scale_lr, set_learning_rate)
+                    freeze_labels, grad_clip_norm, scale_lr,
+                    set_learning_rate, trainable_parameters)
 from .train import (TrainState, configure_numerics, prepare_batch,
                     train_segmentor, train_step)
 
@@ -20,5 +21,6 @@ __all__ = ["bn_stats", "calibrate_bn", "load_bn_stats", "reset_bn_stats",
            "Segmentor", "inference_segmentor", "init_segmentor",
            "show_result", "remap_classifier", "build_lr_schedule",
            "build_optimizer", "clip_grad_norm", "grad_clip_norm", "scale_lr",
-           "set_learning_rate", "TrainState", "configure_numerics",
+           "set_learning_rate", "freeze_labels", "trainable_parameters",
+           "TrainState", "configure_numerics",
            "prepare_batch", "train_segmentor", "train_step"]

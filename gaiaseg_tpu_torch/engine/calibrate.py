@@ -13,13 +13,18 @@ mode under ``torch.no_grad()`` on train records read through a shuffled
 divides out the ``1 - d^k`` share of the reset values. The decay ``d`` is
 read from the modules (``1 - momentum``), not assumed to be 0.9.
 
+BN modules that stay in eval mode under ``model.train()`` (a backbone
+with ``norm_eval``) normalize with their running statistics and never
+re-estimate them, so calibration keeps theirs. The JAX package resets
+them to (0, 1) first and so leaves them there (ROADMAP C11).
+
 Across ranks, rank 0 calibrates alone (its collectives off) on the records
 one process would read, and every rank takes its statistics by broadcast,
 so all ranks hold the one-process statistics bit for bit.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Collection, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,12 +47,14 @@ FROZEN_STAT_PREFIXES: Tuple[str, ...] = ("t_backbone", "t_neck",
 BNStats = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
-def bn_modules(model, skip_prefixes: Tuple[str, ...] = ()
+def bn_modules(model, skip_prefixes: Tuple[str, ...] = (),
+               held: Collection[DynBatchNorm] = ()
                ) -> List[Tuple[str, DynBatchNorm]]:
     """``(name, module)`` of every ``DynBatchNorm`` outside the subtrees
-    whose top-level name is in ``skip_prefixes``."""
+    whose top-level name is in ``skip_prefixes`` and not in ``held``."""
+    held_ids = {id(m) for m in held}
     return [(name, m) for name, m in model.named_modules()
-            if isinstance(m, DynBatchNorm)
+            if isinstance(m, DynBatchNorm) and id(m) not in held_ids
             and name.split(".", 1)[0] not in skip_prefixes]
 
 
@@ -78,17 +85,18 @@ def load_bn_stats(model, stats: BNStats) -> None:
 
 @torch.no_grad()
 def reset_bn_stats(model, skip_prefixes: Tuple[str, ...] =
-                   FROZEN_STAT_PREFIXES) -> None:
-    """Means 0, variances 1, except the frozen teacher's."""
-    for _, m in bn_modules(model, skip_prefixes):
+                   FROZEN_STAT_PREFIXES,
+                   held: Collection[DynBatchNorm] = ()) -> None:
+    """Means 0, variances 1, except the frozen teacher's and ``held``."""
+    for _, m in bn_modules(model, skip_prefixes, held):
         m.running_mean.zero_()
         m.running_var.fill_(1.0)
 
 
 @torch.no_grad()
 def debias_bn_stats(model, decay: float, num_batches: int,
-                    skip_prefixes: Tuple[str, ...] = FROZEN_STAT_PREFIXES
-                    ) -> None:
+                    skip_prefixes: Tuple[str, ...] = FROZEN_STAT_PREFIXES,
+                    held: Collection[DynBatchNorm] = ()) -> None:
     """Remove the reset values' share from the EMA after ``num_batches``
     updates at ``decay`` (``_debias_stats`` of the JAX package).
 
@@ -100,7 +108,7 @@ def debias_bn_stats(model, decay: float, num_batches: int,
     if q <= 0.0 or q >= 1.0:
         return
     scale = 1.0 - q
-    for _, m in bn_modules(model, skip_prefixes):
+    for _, m in bn_modules(model, skip_prefixes, held):
         m.running_mean.div_(scale)
         m.running_var.copy_(torch.clamp((m.running_var - q) / scale,
                                         min=1e-12))
@@ -139,8 +147,9 @@ def calibrate_bn(model, dataset, arch, *, num_batches: int = 16,
     mean = torch.tensor(test_params.mean, device=device)
     std = torch.tensor(test_params.std, device=device)
     was_training = model.training
-    reset_bn_stats(model)
     model.train()
+    held = [m for _, m in bn_modules(model) if not m.training]
+    reset_bn_stats(model, held=held)
     try:
         batches = iter(loader)
         for _ in range(num_batches):
@@ -158,5 +167,5 @@ def calibrate_bn(model, dataset, arch, *, num_batches: int = 16,
                 model(img, arch)
     finally:
         model.train(was_training)
-    debias_bn_stats(model, decay, num_batches)
+    debias_bn_stats(model, decay, num_batches, held=held)
     return model

@@ -9,8 +9,11 @@ ViT's separate ``w_q/w_k/w_v`` become one fused ``qkv``. Names follow the
 reference mmseg / timm layout the port's modules use, so the JAX package's
 own ``segmentor_state_dict_to_variables`` (``engine/torch_convert.py:294``)
 and ``vit_state_dict_to_params`` (``:489``) map the result back. Covers the
-DynamicResNet (unrolled blocks, plain stem) and ElasticTransformer
-backbones, the multi-level neck and the PSP/UPer/FCN heads.
+DynamicResNet (unrolled blocks; the plain or deep stem, ``stem0-2`` ->
+mmseg's ``stem.{0,1,3,4,6,7}``; avg_down's ``downsample.{1,2}``) and
+ElasticTransformer backbones, the multi-level neck and the PSP/UPer/FCN
+(with ``conv_cat``)/ASPP/DeepLabV3+ heads. The JAX converter maps no ASPP
+key back and reads ``downsample.0`` as avg_down's conv (ROADMAP C12).
 """
 from __future__ import annotations
 
@@ -57,15 +60,21 @@ def _put(sd, prefix, entries):
 
 
 def backbone_state_dict(p: Dict[str, Any], s: Dict[str, Any],
-                        prefix: str = "backbone"
+                        prefix: str = "backbone", avg_down: bool = False
                         ) -> Dict[str, torch.Tensor]:
-    """``backbone_m`` params/stats of a DynamicResNet -> state_dict."""
-    if "stem0" not in p or "stem1" in p:
-        raise NotImplementedError("deep-stem backbones wait for a later slice")
+    """``backbone_m`` params/stats of a DynamicResNet -> state_dict
+    (``avg_down``: the shortcut's conv and BN sit behind its pool)."""
     pre = f"{prefix}." if prefix else ""
     sd: Dict[str, torch.Tensor] = {}
-    _put(sd, pre + "conv1", conv_state(p["stem0"]["conv"]))
-    _put(sd, pre + "bn1", bn_state(p["stem0"]["bn"], s["stem0"]["bn"]))
+    if "stem1" in p:
+        for i in range(3):
+            _put(sd, f"{pre}stem.{3 * i}", conv_state(p[f"stem{i}"]["conv"]))
+            _put(sd, f"{pre}stem.{3 * i + 1}",
+                 bn_state(p[f"stem{i}"]["bn"], s[f"stem{i}"]["bn"]))
+    else:
+        _put(sd, pre + "conv1", conv_state(p["stem0"]["conv"]))
+        _put(sd, pre + "bn1", bn_state(p["stem0"]["bn"], s["stem0"]["bn"]))
+    ds = (1, 2) if avg_down else (0, 1)
     stage = 1
     while f"layer{stage}" in p:
         lp, ls = p[f"layer{stage}"], s[f"layer{stage}"]
@@ -80,9 +89,9 @@ def backbone_state_dict(p: Dict[str, Any], s: Dict[str, Any],
                 _put(sd, f"{blk}.conv{k}", conv_state(bp[f"conv{k}"]))
                 _put(sd, f"{blk}.bn{k}", bn_state(bp[f"bn{k}"], bs[f"bn{k}"]))
             if "downsample_conv" in bp:
-                _put(sd, f"{blk}.downsample.0",
+                _put(sd, f"{blk}.downsample.{ds[0]}",
                      conv_state(bp["downsample_conv"]))
-                _put(sd, f"{blk}.downsample.1",
+                _put(sd, f"{blk}.downsample.{ds[1]}",
                      bn_state(bp["downsample_bn"], bs["downsample_bn"]))
             b += 1
         stage += 1
@@ -134,7 +143,9 @@ def neck_state_dict(p: Dict[str, Any], prefix: str = "neck"
 
 
 _HEAD_MODULES = {"bottleneck": "bottleneck", "psp_bottleneck": "bottleneck",
-                 "fpn_bottleneck": "fpn_bottleneck"}
+                 "fpn_bottleneck": "fpn_bottleneck", "conv_cat": "conv_cat",
+                 "image_pool": "image_pool.1", "c1_proj": "c1_bottleneck"}
+_SEP_MODULES = {"fuse1": "sep_bottleneck.0", "fuse2": "sep_bottleneck.1"}
 _HEAD_LISTS = {"conv": "convs", "lateral": "lateral_convs",
                "fpn_conv": "fpn_convs"}
 
@@ -145,6 +156,14 @@ def _head_state_dict(prefix, p, s, cfg) -> Dict[str, torch.Tensor]:
     def module(name, mp, ms):
         _put(sd, f"{prefix}.{name}.conv", conv_state(mp["conv"]))
         _put(sd, f"{prefix}.{name}.bn", bn_state(mp["bn"], ms["bn"]))
+
+    def sep_module(name, mp, ms):
+        """JAX ``SepConvModule`` (``dw``, ``dw_bn``, ``pw``) -> mmcv's
+        ``depthwise_conv`` / ``pointwise_conv``."""
+        _put(sd, f"{prefix}.{name}.depthwise_conv.conv", conv_state(mp["dw"]))
+        _put(sd, f"{prefix}.{name}.depthwise_conv.bn",
+             bn_state(mp["dw_bn"], ms["dw_bn"]))
+        module(f"{name}.pointwise_conv", mp["pw"], ms["pw"])
 
     for name in p:
         listed = re.fullmatch(r"(conv|lateral|fpn_conv)(\d+)", name)
@@ -157,6 +176,14 @@ def _head_state_dict(prefix, p, s, cfg) -> Dict[str, torch.Tensor]:
             for i, sc in enumerate(scales):
                 module(f"psp_modules.{i}.1", p[name][f"pool{sc}"],
                        s[name][f"pool{sc}"])
+        elif name in _SEP_MODULES:
+            sep_module(_SEP_MODULES[name], p[name], s[name])
+        elif name == "aspp":
+            for branch in p[name]:
+                i = int(branch[len("branch"):])
+                bp, bs = p[name][branch], s[name][branch]
+                (sep_module if "dw" in bp else module)(
+                    f"aspp_modules.{i}", bp, bs)
         elif listed:
             module(f"{_HEAD_LISTS[listed.group(1)]}.{listed.group(2)}",
                    p[name], s[name])
@@ -174,7 +201,9 @@ def variables_to_state_dict(variables_np: Dict[str, Any],
     if "patch_embed" in params["backbone_m"]:
         sd = vit_state_dict(params["backbone_m"])
     else:
-        sd = backbone_state_dict(params["backbone_m"], stats["backbone_m"])
+        sd = backbone_state_dict(
+            params["backbone_m"], stats["backbone_m"],
+            avg_down=bool(model_cfg["backbone"].get("avg_down", False)))
     if "neck_m" in params:
         sd.update(neck_state_dict(params["neck_m"]))
     sd.update(_head_state_dict("decode_head", params["decode_head_m"],

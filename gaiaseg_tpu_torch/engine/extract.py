@@ -7,16 +7,20 @@ config is the supernet's with the backbone's MAX widths and depths replaced
 by the arch's; every tensor of its state dict is cut from the supernet's.
 Widths are prefix slices, so each tensor is a leading slice on every axis
 whose size differs, except the kernel of a conv whose input is a concat with
-an elastic first segment (the PSP / UPer bottleneck): it keeps the rows
-``[0, a) ++ [m, m + n*ch)`` of its input axis (OIHW axis 1), the rows
-``DynConv2d(in_tail=n*ch)`` reads in the supernet. The subnet runs through
-the same modules at its own MAX, so it equals the supernet at the arch.
+an elastic first segment (the PSP / UPer bottleneck, FCN ``conv_cat``): it
+keeps the rows ``[0, a) ++ [m, m + n*ch)`` of its input axis (OIHW axis
+1), the rows ``DynConv2d(in_tail=n*ch)`` reads in the supernet; an FCN
+head under ``resize_concat`` keeps each stage's active rows of its first
+conv and ``conv_cat``. The ASPP and DeepLabV3+ heads need leading slices
+only: their elastic inputs (the image pool, every ASPP branch, the
+depthwise conv and BN, ``c1_bottleneck``) each read a prefix, and every
+concat inside them is of static widths. The subnet runs through the same
+modules at its own MAX, so it equals the supernet at the arch.
 
-``build_head`` checks a head's ``in_channels`` against the backbone's
-output channels, where Flax infers input widths, so ``subnet_model_cfg``
-also sets each head's ``in_channels`` to the subnet's. FCN
-``concat_input=True`` (``conv_cat``) and the deep stem raise in the port's
-modules (ROADMAP A6), so their extraction waits too.
+``build_head`` checks a head's ``in_channels`` (and a DeepLabV3+ head's
+``c1_in_channels``) against the backbone's output channels, where Flax
+infers input widths, so ``subnet_model_cfg`` also sets them to the
+subnet's. A 3-list stem width becomes the subnet's deep stem.
 """
 from __future__ import annotations
 
@@ -46,6 +50,9 @@ def _with_in_channels(head: Dict[str, Any],
     idx = head.get("in_index", -1)
     head["in_channels"] = [channels[i] for i in idx] \
         if isinstance(idx, (list, tuple)) else channels[idx]
+    if head.get("type") in ("DepthwiseSeparableASPPHead",
+                            "DynamicSepASPPHead"):
+        head["c1_in_channels"] = channels[int(head.get("c1_in_index", 0))]
     return head
 
 
@@ -84,28 +91,63 @@ def _concat_row_indices(max_segs: List[int], act_segs: List[int]
     return np.concatenate(idx)
 
 
+def _heads(model_cfg: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """State-dict prefix -> head config, the decode head and each aux."""
+    heads = {"decode_head": dict(model_cfg["decode_head"])}
+    aux = model_cfg.get("auxiliary_head")
+    if isinstance(aux, (list, tuple)):
+        heads.update({f"auxiliary_head.{i}": dict(a)
+                      for i, a in enumerate(aux)})
+    elif aux:
+        heads["auxiliary_head"] = dict(aux)
+    return heads
+
+
+_FCN = ("DynamicFCNHead", "FCNHead")
+_PYRAMID = ("DynamicPSPHead", "PSPHead", "DynamicUPerHead", "UPerHead")
+
+
 def _concat_spec(key: str, model_cfg: Dict[str, Any],
                  max_arch: Dict[str, Any], arch: Dict[str, Any]
                  ) -> Optional[Tuple[List[int], List[int]]]:
     """(max_segments, active_segments) of the conv input for the state dict
-    entries that consume an elastic concat (JAX ``decode_head_m/bottleneck``
-    and ``psp_bottleneck`` are both the port's ``decode_head.bottleneck``);
-    None for plain leading-slice entries."""
-    if key != "decode_head.bottleneck.conv.weight":
+    entries that consume an elastic concat: the PSP / UPer bottleneck (JAX
+    ``decode_head_m/bottleneck`` and ``psp_bottleneck``), FCN ``conv_cat``
+    (JAX ``extract.py:91-103``) and an FCN's first conv under
+    ``resize_concat``; None for plain leading-slice entries."""
+    if not key.endswith(".conv.weight"):
         return None
-    head = dict(model_cfg["decode_head"])
-    if head.get("type") not in ("DynamicPSPHead", "PSPHead",
-                                "DynamicUPerHead", "UPerHead"):
+    module = key[:-len(".conv.weight")]
+    found = [(p, h) for p, h in _heads(model_cfg).items()
+             if module.startswith(p + ".")]
+    if not found:
         return None
+    prefix, head = max(found, key=lambda f: len(f[0]))
+    name = module[len(prefix) + 1:]
     bb = model_cfg["backbone"]
     max_c = _stage_channels(bb, max_arch["backbone"]["body"]["width"])
     act_c = _stage_channels(bb, arch["backbone"]["body"]["width"])
     idx = head.get("in_index", -1)
-    if isinstance(idx, (list, tuple)):
-        idx = idx[-1]           # UPer: the pyramid runs on the last input
+    if head.get("input_transform") == "resize_concat":
+        if head.get("type") not in _FCN:
+            raise NotImplementedError(
+                f"extracting a {head.get('type')} under resize_concat")
+        idx = list(idx) if isinstance(idx, (list, tuple)) else [idx]
+        max_segs = [max_c[i] for i in idx]
+        act_segs = [act_c[i] for i in idx]
+    else:
+        if isinstance(idx, (list, tuple)):
+            idx = idx[-1]       # UPer: the pyramid runs on the last input
+        max_segs, act_segs = [max_c[idx]], [act_c[idx]]
     ch = int(head.get("channels", 512))
-    n = len(head.get("pool_scales", (1, 2, 3, 6)))
-    return [max_c[idx]] + [ch] * n, [act_c[idx]] + [ch] * n
+    if head.get("type") in _PYRAMID and name == "bottleneck":
+        n = len(head.get("pool_scales", (1, 2, 3, 6)))
+        return max_segs + [ch] * n, act_segs + [ch] * n
+    if head.get("type") in _FCN and name == "conv_cat":
+        return max_segs + [ch], act_segs + [ch]
+    if head.get("type") in _FCN and name == "convs.0" and len(max_segs) > 1:
+        return max_segs, act_segs
+    return None
 
 
 def _slice_tensor(src: torch.Tensor, shape: Tuple[int, ...],

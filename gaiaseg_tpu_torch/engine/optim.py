@@ -1,8 +1,8 @@
-"""SGD / AdamW, gradient clipping and the LR schedule from mmcv-style
-configs.
+"""SGD / Adam / AdamW, gradient clipping, frozen stages and the LR schedule
+from mmcv-style configs.
 
-Port of ``gaiaseg_tpu/engine/optim.py``: SGD with momentum and weight decay
-or AdamW, ``grad_clip``, the ``lr_scaler`` rule and the poly/step/fixed
+Port of ``gaiaseg_tpu/engine/optim.py``: SGD with momentum and weight decay,
+Adam or AdamW, ``grad_clip``, the ``lr_scaler`` rule and the poly/step/fixed
 schedules with linear warmup, evaluated on the host and set into the
 optimizer every step.
 
@@ -13,6 +13,15 @@ optimizer every step.
   scale_by_learning_rate`` is ``torch.optim.AdamW`` with the same betas,
   eps and decay on every parameter: ``p -= lr * (m_hat / (sqrt(v_hat) +
   eps) + wd * p)``.
+- ``type='Adam'`` is the JAX chain's ``scale_by_adam()`` at its defaults
+  (b1 0.9, b2 0.999, eps 1e-8) with no weight decay: the config's
+  ``betas``, ``eps`` and ``weight_decay`` are ignored, as in JAX.
+  ``torch.optim.Adam`` with ``weight_decay=0`` computes that update.
+- The backbone's ``frozen_stages`` (``freeze_labels``) are JAX's
+  ``optax.masked(set_to_zero)`` after the whole chain: the frozen
+  parameters keep their gradients, which count in the clip's global norm
+  and are summed over the ranks, but the optimizer never holds them, so
+  no decay or momentum moves them (``trainable_parameters``).
 - ``clip_by_global_norm`` (first in the chain) is ``clip_grad_norm``
   below, not ``torch.nn.utils.clip_grad_norm_``: optax scales by
   ``max_norm / norm`` and only when ``norm >= max_norm``; torch scales by
@@ -20,7 +29,7 @@ optimizer every step.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Set
 
 import torch
 
@@ -75,10 +84,32 @@ def build_lr_schedule(lr_config: Optional[Dict], base_lr: float,
     return main
 
 
+def freeze_labels(model_cfg: Optional[Dict[str, Any]]) -> Set[str]:
+    """Top-level backbone submodule names whose parameters take no update
+    (JAX ``freeze_labels``, the reference's ``frozen_stages``): with
+    ``frozen_stages >= 0`` the stem (``conv1``/``bn1`` or the deep
+    ``stem``) and ``layer1`` .. ``layer{frozen_stages}``."""
+    fs = int(((model_cfg or {}).get("backbone") or {})
+             .get("frozen_stages", -1))
+    if fs < 0:
+        return set()
+    return {"conv1", "bn1", "stem"} | {f"layer{i}" for i in range(1, fs + 1)}
+
+
+def trainable_parameters(model: torch.nn.Module,
+                         model_cfg: Optional[Dict[str, Any]]
+                         ) -> List[torch.nn.Parameter]:
+    """The parameters an optimizer steps: all but the frozen stages'."""
+    frozen = freeze_labels(model_cfg)
+    return [p for name, p in model.named_parameters()
+            if not (name.startswith("backbone.")
+                    and name.split(".")[1] in frozen)]
+
+
 def build_optimizer(params: Iterable[torch.nn.Parameter],
                     optimizer_cfg: Dict[str, Any]) -> torch.optim.Optimizer:
-    """SGD or AdamW; the config's ``optimizer_config.grad_clip`` is applied
-    by the train step (``grad_clip_norm``, ``clip_grad_norm``)."""
+    """SGD, Adam or AdamW; the config's ``optimizer_config.grad_clip`` is
+    applied by the train step (``grad_clip_norm``, ``clip_grad_norm``)."""
     cfg = dict(optimizer_cfg)
     opt_type = cfg.pop("type", "SGD").lower()
     lr = float(cfg.pop("lr", 0.01))
@@ -94,8 +125,10 @@ def build_optimizer(params: Iterable[torch.nn.Parameter],
                                  betas=(float(betas[0]), float(betas[1])),
                                  eps=float(cfg.pop("eps", 1e-8)),
                                  weight_decay=wd)
-    raise NotImplementedError(f"optimizer {opt_type!r} waits for a later "
-                              "slice of the port (SGD, AdamW)")
+    if opt_type == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.0)
+    raise ValueError(f"unknown optimizer {opt_type!r}")
 
 
 def grad_clip_norm(optimizer_config: Optional[Dict[str, Any]]

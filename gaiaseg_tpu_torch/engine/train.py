@@ -1,8 +1,9 @@
 """Supernet training: the train step and the loop around it.
 
 Port of ``gaiaseg_tpu/engine/train.py``: per iteration one arch from the
-sandwich sampler, the LR schedule set on the host, one optimizer step (SGD
-or AdamW, with the config's global-norm gradient clip) of
+sandwich sampler, the LR schedule set on the host, one optimizer step (SGD,
+Adam or AdamW, with the config's global-norm gradient clip; the backbone's
+frozen stages outside the optimizer) of
 ``forward_train``. The batches come as in the JAX loop: a ``BatchLoader``
 in the JAX package's order, the config's train pipeline applied on the
 device (``data/transforms.py``) by a prefetch thread, and epoch-based
@@ -58,7 +59,7 @@ from .checkpoint import (latest_checkpoint, load_checkpoint, save_checkpoint,
 from .evaluate import cross_arch_evaluate
 from .numerics import autocast, configure_numerics  # noqa: F401
 from .optim import build_lr_schedule, build_optimizer, clip_grad_norm, \
-    grad_clip_norm, scale_lr, set_learning_rate
+    grad_clip_norm, scale_lr, set_learning_rate, trainable_parameters
 
 
 def prepare_batch(samples: Sequence[Dict[str, np.ndarray]],
@@ -88,10 +89,11 @@ def train_step(model, optimizer: torch.optim.Optimizer, img: torch.Tensor,
     batch statistics as always, and no running statistic changes. Across
     ranks the losses are this rank's shares of the global means, and the
     gradients are summed over the ranks (in flat buckets) before the
-    zero-fill and the clip."""
+    zero-fill and the clip. Every parameter of ``model`` counts in the
+    clip's norm, those the optimizer does not hold (frozen) too."""
     # across ranks the gradients start unset, so the reduction carries only
     # those this arch reaches (elastic depth leaves whole blocks without)
-    optimizer.zero_grad(set_to_none=data_parallel()[1] > 1)
+    model.zero_grad(set_to_none=data_parallel()[1] > 1)
     stats = contextlib.nullcontext() if update_stats \
         else frozen_bn_stats(model)
     with stats, autocast(img.device):
@@ -340,7 +342,8 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
     opt_cfg["lr"] = scale_lr(opt_cfg.get("lr", 0.01), global_batch,
                              cfg.get("lr_scaler"))
     schedule = build_lr_schedule(lr_config, opt_cfg["lr"], max_iters)
-    optimizer = build_optimizer(model.parameters(), opt_cfg)
+    optimizer = build_optimizer(trainable_parameters(model, cfg["model"]),
+                                opt_cfg)
     max_norm = grad_clip_norm(cfg.get("optimizer_config"))
     max_arch = model_max_arch(cfg["model"])
     if work_dir is not None and main:

@@ -101,13 +101,22 @@ def build_neck(cfg: Dict[str, Any], backbone_channels: Sequence[int]):
 
 def build_head(cfg: Dict[str, Any], backbone_channels: Sequence[int]):
     """Build a decode head; its MAX ``in_channels`` follow from the
-    backbone's (or neck's) output channels at ``in_index``."""
+    backbone's (or neck's) output channels at ``in_index`` (a list of them
+    under an ``input_transform``; ``resize_concat`` heads sum it), and a
+    DeepLabV3+ head's ``c1_in_channels`` from those at ``c1_in_index``."""
     idx = cfg.get("in_index", -1)
-    if cfg.get("input_transform") == "multiple_select":
-        idx = [int(i) for i in idx]
+    if cfg.get("input_transform") in ("multiple_select", "resize_concat"):
+        idx = [int(i) for i in (idx if isinstance(idx, (list, tuple))
+                                else [idx])]
+    extra = {}
+    if "c1_in_channels" in _init_args(HEADS.get(cfg["type"]) or object):
+        c1 = int(cfg.get("c1_in_index", 0))
+        extra["c1_in_channels"] = _in_channels(
+            {"type": cfg["type"], "in_channels": cfg.get("c1_in_channels")},
+            backbone_channels, c1)
     return _with_stat_groups(_build_filtered(
         HEADS, cfg, in_index=idx,
-        in_channels=_in_channels(cfg, backbone_channels, idx)), cfg)
+        in_channels=_in_channels(cfg, backbone_channels, idx), **extra), cfg)
 
 
 def build_loss(cfg: Dict[str, Any]):

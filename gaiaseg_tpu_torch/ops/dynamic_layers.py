@@ -40,6 +40,12 @@ class DynConv2d(nn.Module):
     truncates the produced channels. ``padding=None`` is torch's symmetric
     ``dilation * (k - 1) // 2``; an int or pair pads symmetrically by that
     (0 for the ViT patch embed).
+
+    ``groups=in_channels`` (with ``out_channels == in_channels``) is a
+    depthwise conv, the separable ASPP's (JAX ``aspp_head.py:34``): the
+    weight is ``[C, 1, kh, kw]`` at MAX and a narrower input of ``c``
+    channels takes ``weight[:c]`` with ``groups=c``, the extracted
+    subnet's conv. Other group counts have no sliced meaning and raise.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -47,16 +53,22 @@ class DynConv2d(nn.Module):
                  stride: Union[int, Tuple[int, int]] = 1,
                  dilation: Union[int, Tuple[int, int]] = 1,
                  bias: bool = False,
-                 padding: Optional[Union[int, Tuple[int, int]]] = None):
+                 padding: Optional[Union[int, Tuple[int, int]]] = None,
+                 groups: int = 1):
         super().__init__()
+        if groups != 1 and not groups == in_channels == out_channels:
+            raise ValueError(f"DynConv2d groups={groups}: 1 or depthwise "
+                             f"(groups == in == out channels, here "
+                             f"{in_channels} -> {out_channels})")
+        self.depthwise = groups != 1
         kh, kw = _pair(kernel_size)
         self.stride = _pair(stride)
         self.dilation = _pair(dilation)
         self.padding = (self.dilation[0] * (kh - 1) // 2,
                         self.dilation[1] * (kw - 1) // 2) \
             if padding is None else _pair(padding)
-        self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kh, kw))
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, 1 if self.depthwise else in_channels, kh, kw))
         # the JAX init: variance_scaling(2.0, "fan_out", truncated normal)
         nn.init.kaiming_normal_(self.weight, mode="fan_out",
                                 nonlinearity="relu")
@@ -65,6 +77,13 @@ class DynConv2d(nn.Module):
     def forward(self, x: torch.Tensor, out_channels: Optional[int] = None,
                 in_tail: int = 0) -> torch.Tensor:
         w, b = self.weight, self.bias
+        if self.depthwise:
+            c = x.shape[1]
+            if c > w.shape[0] or out_channels not in (None, c):
+                raise ValueError(f"depthwise conv of {w.shape[0]} channels "
+                                 f"given {c} (out_channels={out_channels})")
+            return F.conv2d(x, w[:c], b[:c] if b is not None else None,
+                            self.stride, self.padding, self.dilation, c)
         in_ch, in_max = x.shape[1], w.shape[1]
         if in_ch > in_max:
             raise ValueError(f"input has {in_ch} channels, the weight {in_max}")
