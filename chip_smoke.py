@@ -93,7 +93,33 @@ Phases, each printing its own lines; any failure exits non-zero:
             bit-equal to the supernet's at its arch and its parameters
             equal to the analytic count (the backbone's for DeepLabV3+,
             whose head the FLOPs sweep does not count); MB, FLOPs.
-11. ddp     data parallelism on the one card (NCCL refuses two ranks on one
+11. distill the DynamicDistiller at full width (``configs/local_examples/
+            train_supernet/soak_distill_512.py``: the flagship student, a
+            BEiT-base teacher, 768 wide, depth 12, 12 heads, patch 16,
+            per-block relative-position tables, out 3/5/7/11, + a UPer
+            teacher head of 512), synthetic 512x512 records kept on the card
+            through the config's train pipeline, batch 8: K1/K2 at this
+            path's loss shapes (decode 16x16, aux 32x32 -> 512x512) against
+            their plain versions in float32 and bf16, and timed; a seeded
+            teacher ``.pth`` in the official BEiT layout with tables of a
+            14x14 window (a 224 pretraining), stale index buffers and a BN
+            in ``fpn1.1``, loaded through ``teacher_checkpoint`` (the
+            tables resampled to 32x32, the FPN deconvs loaded, ``fpn1.1``
+            at init);
+            one sandwich cycle (finite losses with ``distill_loss_seg`` and
+            ``pairwise_loss_seg``, K1 and K2 16 launches each, every teacher
+            tensor bit-equal to the loaded one after it, no teacher
+            parameter in the optimizer); the warm cycles' least step times,
+            a profiled MAX step and the device time of the kernels inside
+            its ``teacher_forward`` range as a share of its busy time, peak
+            memory; the float32 losses of one image on the card
+            (K1/K2) within 1e-4 relative of the CPU's plain route. Then
+            self-distillation (``soak_distill_resnet_teacher.py``):
+            ``tools/make_teacher_ckpt.py`` of the trained supernet, its
+            teacher bit-equal to it, one MAX step (K1/K2 2/2). Last, a
+            float64 MAX step on 2 gloo ranks x 4 sharing the card against
+            one process x 8 (loss and each gradient within 1e-6).
+12. ddp     data parallelism on the one card (NCCL refuses two ranks on one
             device): 2 ranks over gloo sharing cuda:0, each at 4 of the
             flagship's batch of 8: one float32 MAX step (autocast and TF32
             off) against one process's batch-8 step from the same weights
@@ -106,7 +132,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             process's. Then ``python -m torch.distributed.run
             --nproc_per_node 1`` of the train CLI on the flagship for 8
             iterations: an NCCL group of world size 1, finite losses.
-12. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
+13. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
             (``flash_bwd_dq``) against their plain torch versions at the ViT
             shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025, 200
             (ragged tails), 1088 (a half-empty last 128-row block), 64 (one
@@ -115,11 +141,11 @@ Phases, each printing its own lines; any failure exits non-zero:
             beside the plain version, SDPA and the bound, K3 beside SDPA's
             forward and the port's whole attention backward
             (``attention_di`` + K4 + K5) beside SDPA's backward, in turns.
-13. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
+14. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
             the flash kernels equal the dense attention route (bf16, a
             batch of 8); two planted faults in dq (zeroed, halved) must
             fail that check.
-14. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
+15. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
             UPerNet supernet (``configs/_dynamic_/models/upernet_elastic_
             vit.py`` with ``with_cls_token=False``, so the flash gate opens)
             at full width, synthetic 512x512 records kept on the card
@@ -128,7 +154,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             K3-K5 must each launch once per active layer, K1/K2 twice per
             iteration. Then the cycle again for warm times, a profiled
             MAX step, and the least step times over three warm cycles.
-15. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
+16. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
             of four synthetic 512x1024 images, one forward an image) at the
             val anchors MIN and MAX, then flip, multi-scale (0.75, 1.0) and
             whole runs at MAX, seconds an image each; flash_fwd launches
@@ -136,9 +162,9 @@ Phases, each printing its own lines; any failure exits non-zero:
             (float32, flash off) within 1e-4 of max|ref| of a slide built
             from each window's whole inference.
 
-The train phases (``train``, ``data``, ``vit_train``) run at log interval
-1: every step is a full step (BN statistics updated) and synchronized, so
-its time is the step's.
+The train phases (``train``, ``data``, ``deeplab``, ``distill``,
+``vit_train``) run at log interval 1: every step is a full step (BN
+statistics updated) and synchronized, so its time is the step's.
 
 It then prints the ``kernels`` JSON line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Details go to
@@ -163,8 +189,8 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
                    "upernet_elastic_vit.py")
 PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
-          "eval", "loop", "subnets", "deeplab", "ddp", "flash_kernels",
-          "vit_segmentor", "vit_train", "vit_eval")
+          "eval", "loop", "subnets", "deeplab", "distill", "ddp",
+          "flash_kernels", "vit_segmentor", "vit_train", "vit_eval")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
 REPO_KERNELS = ("fwd_tile", "fwd_tile_any", "bwd_tile", "bwd_tile_any",
@@ -1003,11 +1029,13 @@ def phase_data(ctx):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _profile_max_step(model, cfg, warm, tag):
+def _profile_max_step(model, cfg, warm, tag, ranges=()):
     """Where one warm MAX-arch train step spends the card's time: device
     time by kernel from torch.profiler, and the idle share of the step's
     wall time (profiler on, so the wall time carries its overhead). The
-    step is the config's optimizer (at lr 0) and gradient clip."""
+    step is the config's optimizer (at lr 0) and gradient clip. For each
+    ``record_function`` name in ``ranges``, the device time of the kernels
+    launched inside it, from the same trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1057,9 +1085,14 @@ def _profile_max_step(model, cfg, warm, tag):
         if m and m.group(1) in REPO_KERNELS:
             ms0, n0 = ours.get(m.group(1), (0.0, 0))
             ours[m.group(1)] = (ms0 + ms, n0 + n)
+    # a range's CPU event carries the kernels its ops launched
+    in_range = {name: sum(e.device_time_total for e in prof.events()
+                          if e.name == name
+                          and e.device_type == DeviceType.CPU) / 1e3
+                for name in ranges}
     out = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
            "unprofiled_step_ms": warm_ms, "top": rows[:15],
-           "repo_kernels": ours}
+           "repo_kernels": ours, "ranges_ms": in_range}
     if busy == 0:
         print(f"[{tag}] profiler: no device time seen")
         return out
@@ -1071,6 +1104,9 @@ def _profile_max_step(model, cfg, warm, tag):
     print(f"[{tag}] the repo's kernels in that step: " + ", ".join(
         f"{k} {ms:.3f} ms x{n} ({ms / n:.4f} a launch)"
         for k, (ms, n) in ours.items()))
+    for name, ms in in_range.items():
+        print(f"[{tag}] kernels inside {name!r} in that step: {ms:.2f} ms, "
+              f"{ms / busy:.3f} of the busy time")
     return out
 
 
@@ -2204,6 +2240,375 @@ def phase_ddp(ctx):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the distill phase: the DynamicDistiller at full width (a BEiT-base teacher
+# from an official-layout .pth of a 224x224 pretraining, then a flagship
+# supernet teaching a fresh one), on the flagship student at 512x512
+DISTILL_BEIT = os.path.join(REPO, "configs", "local_examples",
+                            "train_supernet", "soak_distill_512.py")
+DISTILL_SELF = os.path.join(REPO, "configs", "local_examples",
+                            "train_supernet",
+                            "soak_distill_resnet_teacher.py")
+DISTILL_BATCH = 8
+PRETRAIN_WINDOW = 14          # BEiT-base pretrained at 224x224, patch 16
+DISTILL_LOSS_RTOL = 1e-4      # card (K1/K2) vs CPU (plain), float32, each
+                              # loss of one 512x512 image
+DISTILL_RANKS, DISTILL_RANK_BATCH = 2, 4
+DISTILL_F64_RTOL = 1e-6       # 2 ranks x 4 vs 1 x 8, float64, per tensor
+# K1/K2 at the flagship student's losses on a 512x512 crop: decode logits
+# at output stride 32 (16x16, row factor 32), aux at 16 (32x32, factor 16)
+DISTILL_LOSSES = {"ds_decode": (8, 19, 16, 16, 512, 512),
+                  "ds_aux": (8, 19, 32, 32, 512, 512)}
+
+
+def _distill_cfg(path, teacher_path):
+    """``path``'s config with the flagship's synthetic records (512x512,
+    kept on the card) through its own train pipeline, every step a full
+    one, the teacher file given, no checkpoint or eval in 8 iterations."""
+    from gaiaseg_tpu_torch.models import fill_img_size
+    from gaiaseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(path)
+    cfg.merge_from_dict({
+        "data.train": {"type": "SyntheticDataset", "size": [512, 512],
+                       "length": 16, "num_classes": 19, "seed": 0,
+                       "cells": 8, "device_cache": True},
+        "data.samples_per_gpu": DISTILL_BATCH,
+        "cudnn_benchmark": False, "auto_resume": False,
+        "log_config.interval": 1,
+        "teacher_checkpoint": teacher_path})
+    fill_img_size(cfg)
+    return cfg
+
+
+def _official_beit_teacher(path, cfg):
+    """Write a seeded teacher segmentor ``.pth`` in the official BEiT layout
+    (``backbone.*``: blocks with q/v biases, per-block tables of a
+    PRETRAIN_WINDOW window and their index buffers, the FPN adapters with
+    ``fpn1.1`` a BN; ``decode_head.*``: the UPer head; ``auxiliary_head.*``,
+    left behind); returns the state dict."""
+    import copy
+    import torch
+    from gaiaseg_tpu_torch.models import build_backbone, build_head
+    from gaiaseg_tpu_torch.models.backbones.beit import relative_position_index
+    torch.manual_seed(11)
+    bb_cfg = dict(copy.deepcopy(cfg["model"]["teacher_backbone"]),
+                  img_size=PRETRAIN_WINDOW * 16)
+    beit = build_backbone(bb_cfg)
+    head = build_head(cfg["model"]["teacher_decode_head"],
+                      beit.out_channels())
+    g = torch.Generator().manual_seed(12)
+    sd = {}
+    for k, v in beit.state_dict().items():
+        if k.startswith("fpn1.1."):        # the port's LayerNorm
+            continue
+        if k.endswith("relative_position_bias_table"):
+            v = torch.randn(v.shape, generator=g) * 0.5
+        elif k.endswith(("q_bias", "v_bias")):
+            v = torch.randn(v.shape, generator=g) * 0.02
+        sd["backbone." + k] = v
+    idx = torch.from_numpy(relative_position_index(
+        PRETRAIN_WINDOW, PRETRAIN_WINDOW).astype("int64"))
+    for i in range(len(beit.blocks)):
+        sd[f"backbone.blocks.{i}.attn.relative_position_index"] = idx
+    d = beit.embed_dim
+    sd.update({"backbone.fpn1.1.weight": torch.rand(d, generator=g) + 0.5,
+               "backbone.fpn1.1.bias": torch.randn(d, generator=g) * 0.1,
+               "backbone.fpn1.1.running_mean": torch.randn(d, generator=g),
+               "backbone.fpn1.1.running_var": torch.rand(d, generator=g) + .5,
+               "backbone.fpn1.1.num_batches_tracked": torch.tensor(1000)})
+    for k, v in head.state_dict().items():
+        if k.endswith("running_var"):
+            v = torch.rand(v.shape, generator=g) + 0.5
+        elif k.endswith(("running_mean", "bn.bias")):
+            v = torch.randn(v.shape, generator=g) * 0.1
+        sd["decode_head." + k] = v
+    sd["auxiliary_head.conv_seg.weight"] = torch.zeros(19, 256, 1, 1)
+    torch.save({"meta": {"note": "seeded, official BEiT layout"},
+                "state_dict": sd}, path)
+    return sd
+
+
+def _teacher_state(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if k.startswith(("t_backbone.", "t_neck.", "t_decode_head."))}
+
+
+def _distill_losses_f32(model, img, gt, arch):
+    """forward_train's losses in float32 (autocast off) in eval mode (BN
+    running statistics, no dropout), the whole pairwise maps (no
+    generator)."""
+    import torch
+    model.eval()
+    with torch.no_grad(), torch.autocast(img.device.type, enabled=False):
+        _, logs = model.forward_train(img, gt, arch)
+    return {k: float(v) for k, v in logs.items()}
+
+
+def _distill_rank(rank, world, port, cfg_dict, ref_path, out_path):
+    """One of the ranks of the distill phase's float64 MAX step."""
+    import torch
+    from gaiaseg_tpu_torch import parallel
+    from gaiaseg_tpu_torch.engine import configure_numerics
+    from gaiaseg_tpu_torch.utils import Config
+    torch.cuda.set_device(0)
+    configure_numerics()
+    parallel.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                    backend="gloo", timeout_s=DDP_TIMEOUT_S)
+    out = {}
+    try:
+        rows = slice(rank * DISTILL_RANK_BATCH,
+                     (rank + 1) * DISTILL_RANK_BATCH)
+        loss, grads = _one_step(Config(cfg_dict), rows, "cuda",
+                                torch.float64)
+        grads = {k: g for k, g in grads.items() if g is not None}
+        if rank == 0:
+            ref = torch.load(ref_path)
+            out = _grad_errors(loss, grads, ref["loss"], ref["grads"])
+            out["tensors"] = len(grads)
+        parallel.barrier()
+    finally:
+        torch.save(out, out_path)
+        parallel.shutdown_distributed()
+
+
+def phase_distill(ctx):
+    """The DynamicDistiller at full width on one card: K1/K2 at the
+    student's loss shapes against their plain versions; the BEiT-base
+    teacher route (``soak_distill_512.py``) from an official-layout
+    ``.pth`` through the table surgery, one sandwich cycle and its warm
+    repeats, the teacher bit-equal after training and outside the
+    optimizer, a profiled MAX step with the teacher's share, card vs CPU
+    losses in float32; the self-distillation route
+    (``soak_distill_resnet_teacher.py``) from ``make_teacher_ckpt``; a
+    float64 MAX step on 2 gloo ranks x 4 against one process x 8."""
+    import shutil
+    import socket
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from gaiaseg_tpu_torch.data import build_dataset
+    from gaiaseg_tpu_torch.engine import (configure_numerics, prepare_batch,
+                                          train_segmentor)
+    from gaiaseg_tpu_torch.engine.ckpt_surgery import \
+        resample_rel_pos_bias_table
+    from gaiaseg_tpu_torch.engine.teacher import load_teacher_checkpoint
+    from gaiaseg_tpu_torch.models import (build_segmentor, encode_arch,
+                                          model_max_arch)
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from gaiaseg_tpu_torch.tools import make_teacher_ckpt
+    smi = ctx.get("nvidia_smi") or nvidia_smi_line()
+    out = ctx["distill"] = {}
+    configure_numerics()
+    torch.backends.cudnn.benchmark = False
+    # 0. K1/K2 at this path's loss shapes against their plain versions
+    errs = {"resize_ce_fwd": 0.0, "resize_ce_bwd": 0.0}
+    checks = out["kernel_checks"] = []
+    for name, shape in DISTILL_LOSSES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_case(name, shape, dtype, seed=1, errs=errs, log=checks)
+    timings = out["kernel_timings"] = {}
+    for name, shape in DISTILL_LOSSES.items():
+        _time_case(name, shape, timings)
+    out["max_abs_err"] = errs
+    tmp = tempfile.mkdtemp(prefix="gseg_distill_")
+    try:
+        # 1. the teacher file, the model, and the teacher it must load
+        t0 = time.perf_counter()
+        pth = os.path.join(tmp, "beit_upernet_teacher.pth")
+        cfg = _distill_cfg(DISTILL_BEIT, pth)
+        file_sd = _official_beit_teacher(pth, cfg)
+        out["teacher_file_mb"] = os.path.getsize(pth) / 1e6
+        torch.manual_seed(0)
+        cpu_model = build_segmentor(cfg["model"])
+        res = load_teacher_checkpoint(pth, cpu_model)
+        loaded = _teacher_state(cpu_model)
+        table = "blocks.3.attn.relative_position_bias_table"
+        want = resample_rel_pos_bias_table(
+            file_sd["backbone." + table].numpy(), PRETRAIN_WINDOW, 32)
+        deconvs = [k for k in file_sd if k.startswith(
+            ("backbone.fpn1.0.", "backbone.fpn1.3.", "backbone.fpn2.0."))]
+        check(torch.equal(loaded["t_backbone." + table],
+                          torch.from_numpy(want))
+              and loaded["t_backbone." + table].shape[0] == 63 * 63 + 3
+              and len(deconvs) == 6 and all(
+                  torch.equal(loaded["t_" + k], file_sd[k]) for k in deconvs)
+              and res["kept_init"] == ["t_backbone.fpn1.1.bias",
+                                       "t_backbone.fpn1.1.weight"],
+              f"distill: teacher file load: kept at init {res['kept_init']}")
+        model = _build_model(cfg)      # seed 0: the same FPN init
+        n_t = sum(p.numel() for m in model.teacher_modules()
+                  for p in m.parameters())
+        n_s = sum(p.numel() for p in model.parameters()) - n_t
+        print(f"[distill] BEiT-base teacher (768 wide, depth 12, 12 heads, "
+              f"rel-pos tables {PRETRAIN_WINDOW}x{PRETRAIN_WINDOW} -> 32x32, "
+              f"out 3/5/7/11) + UPer 512: {n_t / 1e6:.2f} M parameters "
+              f"({out['teacher_file_mb']:.0f} MB file); flagship student "
+              f"{n_s / 1e6:.2f} M; batch {DISTILL_BATCH} of 512x512; set-up "
+              f"{time.perf_counter() - t0:.1f}s")
+
+        # 2. one sandwich cycle through train_segmentor (the teacher file
+        # through teacher_checkpoint), then the warm ones
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state, hist = train_segmentor(
+            model, cfg, device="cuda", max_iters=8, seed=0,
+            log=lambda s: print(f"[distill] {s}"))
+        launches = out["launches"] = dict(LAUNCHES)
+        cold = hist["loss"]
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        names = [r["arch"] for r in cold]
+        check(names == ["MAX", "MIN", "R101", "R77", "R50"] + ["random"] * 3,
+              f"distill: arch sequence {names}")
+        check(all(math.isfinite(r[k]) for r in cold for k in
+                  ("loss", "distill_loss_seg", "pairwise_loss_seg")),
+              f"distill: losses {cold}")
+        for k in ("resize_ce_fwd", "resize_ce_bwd"):
+            check(launches[k] == 2 * len(cold),
+                  f"distill: {k} launched {launches[k]} times in "
+                  f"{len(cold)} iterations (want 2 per iteration)")
+        after = _teacher_state(model)
+        check(after.keys() == loaded.keys() and all(
+            torch.equal(after[k], loaded[k]) for k in loaded),
+            "distill: the teacher moved in training: " + str(
+                [k for k in loaded if not torch.equal(after[k], loaded[k])]
+                [:4]))
+        t_ids = {id(p) for m in model.teacher_modules()
+                 for p in m.parameters()}
+        held = {id(p) for g in state.optimizer.param_groups
+                for p in g["params"]}
+        check(not t_ids & held and len(held) > 0,
+              "distill: the optimizer holds teacher parameters")
+        print(f"[distill] cycle losses: " + ", ".join(
+            f"{r['arch']} {r['loss']:.3f}/{r['distill_loss_seg']:.3f}/"
+            f"{r['pairwise_loss_seg']:.3f}" for r in cold)
+            + " (decode/distill/pairwise)")
+        print(f"[distill] launches {launches}; {len(loaded)} teacher tensors"
+              f" bit-equal to the loaded ones after the cycle; the "
+              f"optimizer holds none of them; peak memory "
+              f"{out['peak_mem_gb']:.2f} GB; on {smi}")
+        cfg["teacher_checkpoint"] = None     # loaded; the repeats reuse it
+        warm = train_segmentor(model, cfg, device="cuda", max_iters=8,
+                               seed=0)[1]["loss"]
+        out["cold_history"], out["warm_history"] = cold, warm
+        out.update(_steady_step_ms(model, cfg, warm, "distill"))
+        prof = out["profile"] = _profile_max_step(
+            model, cfg, warm, "distill", ranges=("teacher_forward",))
+        busy = prof["device_busy_ms"]
+        teacher_ms = prof["ranges_ms"]["teacher_forward"]
+        check(busy > 0 and teacher_ms > 0,
+              f"distill: profiled MAX step busy {busy} ms, teacher "
+              f"{teacher_ms} ms")
+        out["teacher_ms"], out["teacher_share"] = teacher_ms, teacher_ms / busy
+        ds = build_dataset(cfg["data"]["train"])
+
+        # 3. card (K1/K2) vs CPU (plain) losses, float32, one image
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        max_arch = encode_arch(model_max_arch(cfg["model"]))
+        rec = ds[3]
+        img1, gt1 = prepare_batch([rec], cfg["img_norm_cfg"], "cuda")
+        reset_launches()
+        card = _distill_losses_f32(model, img1, gt1, max_arch)
+        k_card = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        cpu = _distill_losses_f32(cpu_model, img1.cpu(), gt1.cpu(), max_arch)
+        cpu_s = time.perf_counter() - t0
+        rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+               for k in cpu}
+        check(set(card) == set(cpu) and k_card["resize_ce_fwd"] == 2
+              and max(rel.values()) <= DISTILL_LOSS_RTOL,
+              f"distill: card {card} vs CPU {cpu}, launches {k_card}")
+        out["card_vs_cpu"] = {"card": card, "cpu": cpu, "rel": rel,
+                              "cpu_s": cpu_s}
+        print(f"[distill] float32 losses of one 512x512 image, card (K1/K2 "
+              f"{k_card['resize_ce_fwd']}/{k_card['resize_ce_bwd']}) vs CPU "
+              f"(plain, {cpu_s:.1f}s): " + ", ".join(
+                  f"{k} {card[k]:.6f}/{cpu[k]:.6f} (rel {rel[k]:.1e})"
+                  for k in sorted(cpu)))
+        student_path = os.path.join(tmp, "flagship_supernet.pth")
+        torch.save({"meta": {"iter": 32}, "state_dict": {
+            k: v.cpu() for k, v in model.state_dict().items()
+            if not k.startswith("t_")}}, student_path)
+        del model, cpu_model, state, loaded, after, file_sd
+        torch.cuda.empty_cache()
+
+        # 4. self-distillation: the trained flagship supernet as teacher
+        teacher_path = os.path.join(tmp, "flagship_teacher.pth")
+        make_teacher_ckpt.main([student_path, teacher_path])
+        scfg = _distill_cfg(DISTILL_SELF, teacher_path)
+        smodel = _build_model(scfg)
+        reset_launches()
+        shist = train_segmentor(smodel, scfg, device="cuda", max_iters=1,
+                                seed=0)[1]["loss"]
+        s_launches = dict(LAUNCHES)
+        src = torch.load(student_path, weights_only=False)["state_dict"]
+        got = _teacher_state(smodel)
+        same = [k for k in got if torch.equal(got[k], src[k[2:]])]
+        check(len(same) == len(got) and len(got) == len(
+            [k for k in src if k.startswith(("backbone.", "decode_head."))])
+            and shist[0]["arch"] == "MAX" and math.isfinite(shist[0]["loss"])
+            and s_launches["resize_ce_fwd"] == 2
+            and s_launches["resize_ce_bwd"] == 2,
+            f"distill: self-distillation: {len(same)}/{len(got)} teacher "
+            f"tensors equal the supernet's, step {shist}, {s_launches}")
+        out["self_distill"] = {"step": shist[0], "launches": s_launches,
+                               "teacher_tensors": len(got)}
+        print(f"[distill] self-distillation: make_teacher_ckpt of the "
+              f"trained supernet -> {len(got)} teacher tensors (BN "
+              f"statistics included) bit-equal to it; MAX step loss "
+              f"{shist[0]['loss']:.4f}, distill "
+              f"{shist[0]['distill_loss_seg']:.4f}, pairwise "
+              f"{shist[0]['pairwise_loss_seg']:.4f}, "
+              f"{shist[0]['step_ms']:.1f} ms (first); K1/K2 "
+              f"{s_launches['resize_ce_fwd']}/{s_launches['resize_ce_bwd']}")
+        del smodel, src, got
+        torch.cuda.empty_cache()
+
+        # 5. a float64 MAX step of the BEiT distiller (random teacher, seed
+        # 0) on 2 gloo ranks x 4 against one process x 8
+        rcfg = _distill_cfg(DISTILL_BEIT, None)
+        t0 = time.perf_counter()
+        loss, grads = _one_step(rcfg, slice(None), "cuda", torch.float64)
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"loss": loss, "grads": {k: g.cpu() for k, g in
+                                            grads.items() if g is not None}},
+                   ref_path)
+        del grads
+        torch.cuda.empty_cache()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        spawn = mp.get_context("spawn")
+        outs = [os.path.join(tmp, f"rank{r}.pt")
+                for r in range(DISTILL_RANKS)]
+        procs = [spawn.Process(target=_distill_rank, args=(
+            r, DISTILL_RANKS, port, _distill_cfg(DISTILL_BEIT, None)
+            .to_dict(), ref_path, outs[r])) for r in range(DISTILL_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(DDP_TIMEOUT_S)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+        check(all(p.exitcode == 0 for p in procs),
+              f"distill: rank exit codes {[p.exitcode for p in procs]}")
+        e = torch.load(outs[0], weights_only=False)
+        out["ranks_float64"] = e
+        ranks_s = time.perf_counter() - t0
+        print(f"[distill] float64 MAX step, 2 gloo ranks x "
+              f"{DISTILL_RANK_BATCH} vs one process x {DISTILL_BATCH}: loss "
+              f"rel {e['loss_rel']:.1e}, worst grad {e['worst_grad_rel']:.1e}"
+              f" ({e['worst_tensor']}) over {e['tensors']} student tensors "
+              f"({ranks_s:.1f}s)")
+        check(e["loss_rel"] <= DISTILL_F64_RTOL
+              and e["worst_grad_rel"] <= DISTILL_F64_RTOL,
+              f"distill: ranks vs one process in float64: {e}")
+    finally:
+        reset_launches()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # --------------------------------------------------------------------- #
 def _vit_cfg():
     from gaiaseg_tpu_torch.utils import Config
@@ -2528,11 +2933,19 @@ REPLACES = {
 }
 
 
+def _path_launches(ctx, k):
+    """K1/K2 launches over the main paths that ran: the flagship train
+    cycle and the distill phase's BEiT-teacher cycle, each counted from 0."""
+    runs = [c[k] for c in (ctx.get("launches"),
+                           (ctx.get("distill") or {}).get("launches")) if c]
+    return sum(runs) if runs else None
+
+
 def kernels_line(ctx):
     """One entry per kernel. K1/K2: times per flagship train step (its
     decode-loss and aux-loss launches added), launches from the flagship
-    train run. K3-K5: times per launch at the ViT train shape, launches
-    from the ViT train cycle."""
+    train cycle and the distill cycle. K3-K5: times per launch at the ViT
+    train shape, launches from the ViT train cycle."""
     out = []
     timings = ctx.get("kernel_timings", {})
     for k in ("resize_ce_fwd", "resize_ce_bwd"):
@@ -2545,7 +2958,7 @@ def kernels_line(ctx):
             "name": k, "route": "cuda",
             "source": "gaiaseg_tpu_torch/csrc/resize_ce.cu",
             "replaces": REPLACES[k],
-            "launches": ctx.get("launches", {}).get(k),
+            "launches": _path_launches(ctx, k),
             "max_abs_err": ctx.get("max_abs_err", {}).get(k),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms") if rows else None,
@@ -2594,7 +3007,8 @@ def main(argv) -> int:
               f"({e})", file=sys.stderr)
         return 1
     for path in (FLAGSHIP, VIT, ADE20K, FLOPS_CFG, RULES_CFG, FT_CFG,
-                 *EXTRACT_CFGS, DEEPLAB, V1C, V1C_EXTRACT):
+                 *EXTRACT_CFGS, DEEPLAB, V1C, V1C_EXTRACT, DISTILL_BEIT,
+                 DISTILL_SELF):
         if not os.path.isfile(path):
             print(f"chip_smoke: config missing: {path}", file=sys.stderr)
             return 1
@@ -2624,7 +3038,8 @@ def main(argv) -> int:
                    "train": ctx.get("train"), "profile": ctx.get("profile"),
                    "eval": ctx.get("eval"), "loop": ctx.get("loop"),
                    "subnets": ctx.get("subnets"),
-                   "deeplab": ctx.get("deeplab"), "ddp": ctx.get("ddp"),
+                   "deeplab": ctx.get("deeplab"),
+                   "distill": ctx.get("distill"), "ddp": ctx.get("ddp"),
                    "flash_timings": ctx.get("flash_timings"),
                    "flash_forward": ctx.get("flash_forward"),
                    "flash_backward": ctx.get("flash_backward"),

@@ -10,6 +10,7 @@ from .label_surgery import remap_classifier
 from .optim import (build_lr_schedule, build_optimizer, clip_grad_norm,
                     freeze_labels, grad_clip_norm, scale_lr,
                     set_learning_rate, trainable_parameters)
+from .teacher import load_teacher_checkpoint
 from .train import (TrainState, configure_numerics, prepare_batch,
                     train_segmentor, train_step)
 
@@ -22,5 +23,5 @@ __all__ = ["bn_stats", "calibrate_bn", "load_bn_stats", "reset_bn_stats",
            "show_result", "remap_classifier", "build_lr_schedule",
            "build_optimizer", "clip_grad_norm", "grad_clip_norm", "scale_lr",
            "set_learning_rate", "freeze_labels", "trainable_parameters",
-           "TrainState", "configure_numerics",
+           "load_teacher_checkpoint", "TrainState", "configure_numerics",
            "prepare_batch", "train_segmentor", "train_step"]

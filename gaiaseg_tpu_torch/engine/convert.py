@@ -12,8 +12,14 @@ and ``vit_state_dict_to_params`` (``:489``) map the result back. Covers the
 DynamicResNet (unrolled blocks; the plain or deep stem, ``stem0-2`` ->
 mmseg's ``stem.{0,1,3,4,6,7}``; avg_down's ``downsample.{1,2}``) and
 ElasticTransformer backbones, the multi-level neck and the PSP/UPer/FCN
-(with ``conv_cat``)/ASPP/DeepLabV3+ heads. The JAX converter maps no ASPP
-key back and reads ``downsample.0`` as avg_down's conv (ROADMAP C12).
+(with ``conv_cat``)/ASPP/DeepLabV3+ heads, and a distiller's teacher
+(``t_backbone``, a BEiT or a DynamicResNet, ``t_neck``, ``t_decode_head``)
+into its ``t_*`` keys: BEiT in the official layout, its k bias dropped (a
+bias added to every key of a row moves no softmax) and its FPN deconv
+kernels flipped in space (flax's ``ConvTranspose`` with its defaults
+computes ``out[2i] = x[i] w[1]``, ``out[2i+1] = x[i] w[0]``). The JAX
+converter maps no ASPP key back and reads ``downsample.0`` as avg_down's
+conv (ROADMAP C12).
 """
 from __future__ import annotations
 
@@ -126,6 +132,49 @@ def vit_state_dict(p: Dict[str, Any], prefix: str = "backbone"
     return sd
 
 
+def deconv_state(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``ConvTranspose`` (``transpose_kernel=False``) kernel ``[kh,
+    kw, in, out]`` -> torch ``ConvTranspose2d`` ``[in, out, kh, kw]``,
+    flipped in space."""
+    k = np.asarray(p["kernel"])[::-1, ::-1]
+    return {"weight": _t(k.transpose(2, 3, 0, 1)), "bias": _t(p["bias"])}
+
+
+def beit_state_dict(p: Dict[str, Any], prefix: str = "t_backbone"
+                    ) -> Dict[str, torch.Tensor]:
+    """A JAX BEiT's params -> the port's (official-layout) state dict."""
+    pre = f"{prefix}." if prefix else ""
+    sd = {f"{pre}cls_token": _t(p["cls_token"])}
+    _put(sd, pre + "patch_embed.proj", conv_state(p["patch_embed"]))
+    if "rel_pos_bias_table" in p:
+        sd[f"{pre}rel_pos_bias.relative_position_bias_table"] = _t(
+            p["rel_pos_bias_table"])
+    i = 0
+    while f"block{i}" in p:
+        bp, blk = p[f"block{i}"], f"{pre}blocks.{i}"
+        qkv = linear_state(bp["qkv"])
+        d = qkv["weight"].shape[1]
+        sd[f"{blk}.attn.qkv.weight"] = qkv["weight"]
+        sd[f"{blk}.attn.q_bias"] = qkv["bias"][:d].clone()
+        sd[f"{blk}.attn.v_bias"] = qkv["bias"][2 * d:].clone()
+        _put(sd, f"{blk}.attn.proj", linear_state(bp["proj"]))
+        if f"rel_pos_bias_table_{i}" in p:
+            sd[f"{blk}.attn.relative_position_bias_table"] = _t(
+                p[f"rel_pos_bias_table_{i}"])
+        for n in ("norm1", "norm2"):
+            _put(sd, f"{blk}.{n}", ln_state(bp[n]))
+        for n in ("fc1", "fc2"):
+            _put(sd, f"{blk}.mlp.{n}", linear_state(bp[n]))
+        for g in ("gamma_1", "gamma_2"):
+            sd[f"{blk}.{g}"] = _t(bp[g])
+        i += 1
+    for name, slot in (("fpn1_deconv1", "fpn1.0"), ("fpn1_deconv2", "fpn1.3"),
+                       ("fpn2_deconv", "fpn2.0")):
+        _put(sd, pre + slot, deconv_state(p[name]))
+    _put(sd, pre + "fpn1.1", ln_state(p["fpn1_norm"]))
+    return sd
+
+
 def neck_state_dict(p: Dict[str, Any], prefix: str = "neck"
                     ) -> Dict[str, torch.Tensor]:
     """``neck_m`` params of the multi-level neck (convs with bias, no
@@ -209,6 +258,8 @@ def variables_to_state_dict(variables_np: Dict[str, Any],
     sd.update(_head_state_dict("decode_head", params["decode_head_m"],
                                stats["decode_head_m"],
                                dict(model_cfg["decode_head"])))
+    if "t_backbone" in params:
+        sd.update(teacher_state_dict(params, stats, model_cfg))
     aux = model_cfg.get("auxiliary_head")
     aux_list = list(aux) if isinstance(aux, (list, tuple)) else \
         ([aux] if aux else [])
@@ -217,4 +268,26 @@ def variables_to_state_dict(variables_np: Dict[str, Any],
             else f"auxiliary_head.{i}"
         sd.update(_head_state_dict(prefix, params[f"aux_heads_{i}"],
                                    stats[f"aux_heads_{i}"], dict(a_cfg)))
+    return sd
+
+
+def teacher_state_dict(params: Dict[str, Any], stats: Dict[str, Any],
+                       model_cfg: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX distiller's ``t_backbone`` / ``t_neck`` / ``t_decode_head``
+    -> the port's ``t_*`` entries."""
+    bb = params["t_backbone"]
+    if "patch_embed" in bb:
+        sd = beit_state_dict(bb)
+    else:
+        sd = backbone_state_dict(
+            bb, stats["t_backbone"], prefix="t_backbone",
+            avg_down=bool(model_cfg["teacher_backbone"].get("avg_down",
+                                                            False)))
+    if "t_neck" in params:
+        sd.update(neck_state_dict(params["t_neck"], prefix="t_neck"))
+    if "t_decode_head" in params:
+        sd.update(_head_state_dict(
+            "t_decode_head", params["t_decode_head"],
+            stats.get("t_decode_head", {}),
+            dict(model_cfg["teacher_decode_head"])))
     return sd

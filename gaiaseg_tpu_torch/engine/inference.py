@@ -18,7 +18,7 @@ from ..data.datasets import CITYSCAPES_PALETTE
 from ..data.pipeline_cfg import parse_test_pipeline
 from ..data.transforms import prepare_eval_batch
 from ..models.arch_util import encode_arch, model_max_arch
-from ..models.builder import build_segmentor
+from ..models.builder import build_segmentor, fill_img_size
 from ..utils.config import Config
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint
@@ -50,7 +50,7 @@ def init_segmentor(config: Union[str, Config],
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     torch.manual_seed(seed)
-    model = build_segmentor(cfg["model"],
+    model = build_segmentor(fill_img_size(cfg),
                             test_cfg=cfg["model"].get("test_cfg"))
     model.to(device)
     classes = palette = None

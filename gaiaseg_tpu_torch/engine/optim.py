@@ -22,6 +22,11 @@ optimizer every step.
   parameters keep their gradients, which count in the clip's global norm
   and are summed over the ranks, but the optimizer never holds them, so
   no decay or momentum moves them (``trainable_parameters``).
+- A ``DynamicDistiller``'s teacher (``t_backbone``, ``t_neck``,
+  ``t_decode_head``; JAX ``freeze_labels`` :104-108) is outside the
+  optimizer too. Its parameters take no gradient at all (``requires_grad``
+  off), so they enter neither the clip's norm nor the all-reduce: JAX's
+  are exact zeros there (``stop_gradient``), which add nothing.
 - ``clip_by_global_norm`` (first in the chain) is ``clip_grad_norm``
   below, not ``torch.nn.utils.clip_grad_norm_``: optax scales by
   ``max_norm / norm`` and only when ``norm >= max_norm``; torch scales by
@@ -99,11 +104,12 @@ def freeze_labels(model_cfg: Optional[Dict[str, Any]]) -> Set[str]:
 def trainable_parameters(model: torch.nn.Module,
                          model_cfg: Optional[Dict[str, Any]]
                          ) -> List[torch.nn.Parameter]:
-    """The parameters an optimizer steps: all but the frozen stages'."""
+    """The parameters an optimizer steps: all but the frozen stages' and
+    those that take no gradient (a ``DynamicDistiller``'s teacher)."""
     frozen = freeze_labels(model_cfg)
     return [p for name, p in model.named_parameters()
-            if not (name.startswith("backbone.")
-                    and name.split(".")[1] in frozen)]
+            if p.requires_grad and not (name.startswith("backbone.")
+                                        and name.split(".")[1] in frozen)]
 
 
 def build_optimizer(params: Iterable[torch.nn.Parameter],

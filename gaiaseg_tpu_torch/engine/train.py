@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import os.path as osp
 import time
@@ -60,6 +61,10 @@ from .evaluate import cross_arch_evaluate
 from .numerics import autocast, configure_numerics  # noqa: F401
 from .optim import build_lr_schedule, build_optimizer, clip_grad_norm, \
     grad_clip_norm, scale_lr, set_learning_rate, trainable_parameters
+from .teacher import load_teacher_checkpoint
+
+
+logger = logging.getLogger("gaiaseg_tpu_torch")
 
 
 def prepare_batch(samples: Sequence[Dict[str, np.ndarray]],
@@ -89,23 +94,25 @@ def train_step(model, optimizer: torch.optim.Optimizer, img: torch.Tensor,
     batch statistics as always, and no running statistic changes. Across
     ranks the losses are this rank's shares of the global means, and the
     gradients are summed over the ranks (in flat buckets) before the
-    zero-fill and the clip. Every parameter of ``model`` counts in the
-    clip's norm, those the optimizer does not hold (frozen) too."""
+    zero-fill and the clip. Every parameter of ``model`` that takes a
+    gradient counts in the clip's norm, those the optimizer does not hold
+    (frozen stages) too; a distiller's teacher takes none."""
     # across ranks the gradients start unset, so the reduction carries only
     # those this arch reaches (elastic depth leaves whole blocks without)
     model.zero_grad(set_to_none=data_parallel()[1] > 1)
+    params = [p for p in model.parameters() if p.requires_grad]
     stats = contextlib.nullcontext() if update_stats \
         else frozen_bn_stats(model)
     with stats, autocast(img.device):
         total, logs = model.forward_train(img, gt, arch, generator)
     total.backward()
-    all_reduce_grads(model.parameters())
-    for p in model.parameters():
+    all_reduce_grads(params)
+    for p in params:
         if p.grad is None:   # outside this subnet: decay + moments only
             p.grad = torch.zeros_like(p)
     out = {"loss": total.detach(), **{k: v.detach() for k, v in logs.items()}}
     if max_norm is not None:
-        out["grad_norm"] = clip_grad_norm(model.parameters(), max_norm)
+        out["grad_norm"] = clip_grad_norm(params, max_norm)
     optimizer.step()
     return out
 
@@ -357,6 +364,15 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
     elif load_from:
         load_checkpoint(load_from, model)
         _say(log, f"loaded weights from {load_from}")
+    teacher_ckpt = cfg.get("teacher_checkpoint") \
+        or (cfg.get("model") or {}).get("teacher_ckpt")
+    if teacher_ckpt and hasattr(model, "t_backbone") and not resume_from:
+        if osp.exists(str(teacher_ckpt)):
+            load_teacher_checkpoint(str(teacher_ckpt), model)
+            _say(log, f"loaded the teacher from {teacher_ckpt}")
+        else:
+            logger.warning("teacher_checkpoint %s not found; the teacher "
+                           "keeps its init", teacher_ckpt)
 
     log_interval = int((cfg.get("log_config") or {}).get("interval", 50))
     ckpt_interval, eval_interval, ckpt_calib, eval_calib = _loop_intervals(
@@ -538,26 +554,40 @@ class _ValPhase:
         self.std = torch.tensor(test_pipe.std, device=device)
         self.dtype = torch.bfloat16 if device.type == "cuda" \
             else torch.float32
+        # the dropout (and pairwise window) of a train-mode val phase
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(1)
 
     @torch.no_grad()
     def run(self) -> float:
+        """The mean decode loss of the phase's batches. In eval mode, but
+        for a model whose class says ``eval_mode_val = False`` (the
+        distiller: JAX runs its ``forward_train`` as the step does, with
+        batch statistics left unchanged and dropout)."""
         losses = []
-        self.model.eval()
+        eval_mode = getattr(self.model, "eval_mode_val", True)
+        mode = contextlib.nullcontext() if eval_mode \
+            else frozen_bn_stats(self.model)
+        if eval_mode:
+            self.model.eval()
         try:
-            for _ in range(self.n_batches):
-                batch = next(self.batches)
-                img = prepare_eval_batch(
-                    torch.from_numpy(np.asarray(batch["img"])).to(
-                        self.device), self.mean, self.std, dtype=self.dtype)
-                gt = torch.from_numpy(np.asarray(batch["gt"], np.int32)) \
-                    .to(self.device)
-                meta = broadcast_object(self.sampler.sample()) \
-                    if self.sampler is not None else None
-                with autocast(self.device):
-                    _, logs = self.model.forward_train(
-                        img, gt, encode_arch(self.max_arch, meta))
-                losses.append(float(sum_over_ranks(
-                    logs["decode.loss_seg"].float())))
+            with mode:
+                for _ in range(self.n_batches):
+                    losses.append(self._batch_loss())
         finally:
             self.model.train()
         return sum(losses) / len(losses)
+
+    def _batch_loss(self) -> float:
+        batch = next(self.batches)
+        img = prepare_eval_batch(
+            torch.from_numpy(np.asarray(batch["img"])).to(self.device),
+            self.mean, self.std, dtype=self.dtype)
+        gt = torch.from_numpy(np.asarray(batch["gt"], np.int32)) \
+            .to(self.device)
+        meta = broadcast_object(self.sampler.sample()) \
+            if self.sampler is not None else None
+        with autocast(self.device):
+            _, logs = self.model.forward_train(
+                img, gt, encode_arch(self.max_arch, meta), self.generator)
+        return float(sum_over_ranks(logs["decode.loss_seg"].float()))

@@ -1,18 +1,20 @@
 from . import losses  # noqa: F401  (registers loss classes)
 from .arch_util import (backbone_max_arch, canonical_arch, encode_arch,
                         model_max_arch)
-from .backbones import DynamicResNet, ElasticTransformer
+from .backbones import BEiT, DynamicResNet, ElasticTransformer
 from .builder import (build_backbone, build_head, build_loss, build_neck,
-                      build_segmentor)
+                      build_segmentor, fill_img_size)
 from .decode_heads import (DepthwiseSeparableASPPHead, DynamicASPPHead,
                            DynamicFCNHead, DynamicPSPHead, DynamicUPerHead)
 from .necks import DynamicMultiLevelNeck
-from .segmentors import DynamicEncoderDecoder
+from .segmentors import DynamicDistiller, DynamicEncoderDecoder
 
-__all__ = ["DynamicResNet", "ElasticTransformer", "DynamicMultiLevelNeck",
+__all__ = ["BEiT", "DynamicResNet", "ElasticTransformer",
+           "DynamicMultiLevelNeck",
            "DynamicPSPHead", "DynamicFCNHead", "DynamicUPerHead",
            "DynamicASPPHead", "DepthwiseSeparableASPPHead",
-           "DynamicEncoderDecoder", "build_backbone", "build_neck",
-           "build_head", "build_loss", "build_segmentor",
+           "DynamicEncoderDecoder", "DynamicDistiller", "build_backbone",
+           "build_neck", "build_head", "build_loss", "build_segmentor",
+           "fill_img_size",
            "backbone_max_arch", "model_max_arch", "canonical_arch",
            "encode_arch"]

@@ -119,6 +119,27 @@ def build_head(cfg: Dict[str, Any], backbone_channels: Sequence[int]):
         in_channels=_in_channels(cfg, backbone_channels, idx), **extra), cfg)
 
 
+def fill_img_size(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Give every BEiT of ``cfg['model']`` (backbone or teacher backbone)
+    that has no ``img_size`` the config's train crop, in place, and return
+    ``cfg['model']``. JAX sizes BEiT's relative-position tables at the
+    first call, at the train crop; the port's are sized at construction.
+    Without a train pipeline the crop is the default 512x1024."""
+    from ..data.pipeline_cfg import parse_train_pipeline
+    model = cfg["model"]
+    crop = None
+    for key in ("backbone", "teacher_backbone"):
+        bb = model.get(key)
+        if isinstance(bb, dict) and bb.get("type") in ("BEiT", "Beit") \
+                and bb.get("img_size") is None:
+            if crop is None:
+                crop = list(parse_train_pipeline(
+                    ((cfg.get("data") or {}).get("train") or {})
+                    .get("pipeline")).crop_size)
+            bb["img_size"] = crop
+    return model
+
+
 def build_loss(cfg: Dict[str, Any]):
     return LOSSES.build(dict(cfg))
 

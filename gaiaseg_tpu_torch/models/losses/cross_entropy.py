@@ -1,10 +1,11 @@
 """Cross-entropy losses with ignore index, class and pixel weights.
 
 Port of ``weight_reduce_loss``, ``softmax_cross_entropy``,
-``binary_cross_entropy`` and ``CrossEntropyLoss`` from
+``binary_cross_entropy``, ``CrossEntropyLoss`` and the distillation
+losses ``distill_softened_ce`` and ``pairwise_gram_loss`` from
 ``gaiaseg_tpu/models/losses/cross_entropy.py`` (mmseg's semantics). Logits
 are NCHW ``[N, C, H, W]``; labels ``[N, H, W]`` with ``ignore_index`` (255,
-the seg pad value). The distillation losses wait for a later slice.
+the seg pad value).
 
 Across ranks every mean is the global batch's: this rank returns its share
 and the ranks' shares add up to it. A denominator that counts pixels or
@@ -13,7 +14,7 @@ share; ``none`` returns this rank's pixels.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -118,3 +119,77 @@ class CrossEntropyLoss:
                 logits, label, ignore_index, self.avg_non_ignore,
                 self.class_weight, self.reduction, pixel_weight=weight)
         return self.loss_weight * loss
+
+
+def distill_softened_ce(student_logits: torch.Tensor,
+                        teacher_logits: torch.Tensor,
+                        temperature: float = 1.0) -> torch.Tensor:
+    """Pixelwise softened CE ``-sum softmax(t/T) * log_softmax(s/T)`` over
+    the classes (dim 1), divided by the student's ``N*H*W`` (JAX
+    ``cross_entropy.py:108-115``), in float32; across ranks the global
+    batch's mean."""
+    with torch.autocast(student_logits.device.type, enabled=False):
+        t = torch.softmax(teacher_logits.float() / temperature, dim=1)
+        logs = torch.log_softmax(student_logits.float() / temperature, dim=1)
+        n = student_logits.shape[0] * student_logits.shape[2] \
+            * student_logits.shape[3]
+        return -(t * logs).sum() / (n * data_parallel()[1])
+
+
+def _crop_offsets(h: int, w: int, sh: int, sw: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """``(y0, x0)`` uniform in ``[0, h-sh] x [0, w-sw]``, drawn on the
+    generator's device (nothing read back)."""
+    dev = generator.device
+    return torch.cat([torch.randint(0, h - sh + 1, (1,), generator=generator,
+                                    device=dev),
+                      torch.randint(0, w - sw + 1, (1,), generator=generator,
+                                    device=dev)])
+
+
+def _gram(f: torch.Tensor) -> torch.Tensor:
+    """Channel-normalised ``[N, C, h, w]`` -> ``[N, hw, hw]`` cosines."""
+    f = f.float()
+    f = f / (torch.linalg.vector_norm(f, dim=1, keepdim=True) + 1e-8)
+    f = f.flatten(2)
+    return torch.einsum("ncp,ncq->npq", f, f)
+
+
+def pairwise_gram_loss(student_feat: torch.Tensor,
+                       teacher_feat: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       offsets: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
+    """Pairwise similarity distillation (JAX ``cross_entropy.py:118-151``):
+    channel-normalised Gram matrices ``[N, HW, HW]`` of the student's and
+    the teacher's feature maps (the same size, any channel counts), and the
+    CE of the teacher's row softmax against the student's, averaged over
+    the rows. With a ``generator`` (or explicit ``offsets``) both maps are
+    cut to the same random ``h//2 x w//2`` window first, unless that window
+    would be under 2 on a side. The offsets come from the generator on its
+    device; every rank draws the same ones from its copy of the shared
+    generator. Float32; across ranks the global batch's mean."""
+    n, _, h, w = student_feat.shape
+    sh, sw = h // 2, w // 2
+    if (generator is not None or offsets is not None) and sh >= 2 \
+            and sw >= 2:
+        if offsets is not None:
+            student_feat = student_feat[:, :, offsets[0]:offsets[0] + sh,
+                                        offsets[1]:offsets[1] + sw]
+            teacher_feat = teacher_feat[:, :, offsets[0]:offsets[0] + sh,
+                                        offsets[1]:offsets[1] + sw]
+        else:
+            yx = _crop_offsets(h, w, sh, sw, generator).to(
+                student_feat.device)
+            rows = yx[0] + torch.arange(sh, device=yx.device)
+            cols = yx[1] + torch.arange(sw, device=yx.device)
+            student_feat = student_feat.index_select(2, rows) \
+                .index_select(3, cols)
+            teacher_feat = teacher_feat.index_select(2, rows) \
+                .index_select(3, cols)
+    with torch.autocast(student_feat.device.type, enabled=False):
+        gs, gt = _gram(student_feat), _gram(teacher_feat)
+        pt = torch.softmax(gt, dim=-1)
+        logps = torch.log_softmax(gs, dim=-1)
+        rows = gs.shape[0] * gs.shape[1]
+        return -(pt * logps).sum() / (rows * data_parallel()[1])

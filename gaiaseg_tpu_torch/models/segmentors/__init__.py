@@ -1,3 +1,4 @@
+from .dynamic_distiller import DynamicDistiller
 from .encoder_decoder import DynamicEncoderDecoder
 
-__all__ = ["DynamicEncoderDecoder"]
+__all__ = ["DynamicDistiller", "DynamicEncoderDecoder"]

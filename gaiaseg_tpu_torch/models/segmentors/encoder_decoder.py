@@ -5,11 +5,12 @@ Port of ``gaiaseg_tpu/models/segmentors/encoder_decoder.py``: backbone
 losses of logits resized to label size, and inference in the config's
 ``test_cfg`` mode (whole or slide) with flip and multi-scale TTA. The train
 step's mode is ``forward_train`` with ``compute_acc=False``
-(``engine/train.py:97`` of the JAX package), which is the only mode here.
+(``engine/train.py:97`` of the JAX package); ``compute_acc=True`` also logs
+each head's pixel accuracy, from logits resized to label size.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -19,6 +20,7 @@ from ...ops.resize import resize_bilinear
 from ...utils.registry import SEGMENTORS
 from ..builder import build_backbone, build_head, build_loss, build_neck
 from ..losses.cross_entropy import CrossEntropyLoss
+from ..losses.dice_focal import pixel_accuracy
 
 
 @SEGMENTORS.register_module(name=["DynamicEncoderDecoder", "EncoderDecoder"])
@@ -85,21 +87,46 @@ class DynamicEncoderDecoder(nn.Module):
     # ------------------------------------------------------------------ #
     def forward_train(self, img: torch.Tensor, gt: torch.Tensor,
                       arch: Dict[str, Any],
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      compute_acc: bool = False
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total loss, {name: loss}). ``gt`` is ``[N,H,W]`` with 255
-        ignore; ``generator`` draws the heads' dropout."""
+        ignore; ``generator`` draws the heads' dropout. ``compute_acc``
+        (JAX ``encoder_decoder.py:114-151``): every head's logits are
+        resized to label size, its loss taken unfused and its
+        ``{head}.acc_seg`` logged; the total sums the losses only."""
         feats = self.extract_feat(img, arch)
+        _, losses = self._head_losses(feats, gt, generator, compute_acc)
+        return sum(v for k, v in losses.items() if "loss" in k), losses
+
+    def _head_losses(self, feats: List[torch.Tensor], gt: torch.Tensor,
+                     generator: Optional[torch.Generator],
+                     compute_acc: bool,
+                     acc_heads: Optional[Tuple[str, ...]] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(the decode head's logits at their own size, {name: loss}) of
+        the decode head and the aux heads, in that order. With
+        ``compute_acc`` each head named in ``acc_heads`` (every head when
+        None) has its logits resized to label size, its loss taken unfused
+        and its ``{head}.acc_seg`` logged; the others go through
+        ``_seg_loss``."""
         label_hw = tuple(gt.shape[1:3])
         gt = gt.to(torch.int32).contiguous()
-        losses = {"decode.loss_seg": self._seg_loss(
-            self.decode_head(feats, generator), gt, label_hw,
-            self.loss_decode)}
-        for i, (head, loss_fn) in enumerate(zip(self.aux_heads(),
-                                                self.aux_losses)):
-            losses[f"aux_{i}.loss_seg"] = self._seg_loss(
-                head(feats, generator), gt, label_hw, loss_fn)
-        return sum(losses.values()), losses
+        heads = [("decode", self.decode_head, self.loss_decode)] + [
+            (f"aux_{i}", head, loss_fn) for i, (head, loss_fn) in
+            enumerate(zip(self.aux_heads(), self.aux_losses))]
+        losses, dec = {}, None
+        for name, head, loss_fn in heads:
+            logit = head(feats, generator)
+            dec = logit if dec is None else dec
+            if compute_acc and (acc_heads is None or name in acc_heads):
+                up = resize_bilinear(logit, label_hw, self.align_corners)
+                losses[f"{name}.loss_seg"] = loss_fn(up, gt)
+                losses[f"{name}.acc_seg"] = pixel_accuracy(up, gt)
+            else:
+                losses[f"{name}.loss_seg"] = self._seg_loss(
+                    logit, gt, label_hw, loss_fn)
+        return dec, losses
 
     def _seg_loss(self, logit: torch.Tensor, gt: torch.Tensor, label_hw,
                   loss_fn) -> torch.Tensor:

@@ -61,7 +61,7 @@ def main(argv=None):
                                           subnet_ckpt_name)
     from gaiaseg_tpu_torch.engine.numerics import autocast
     from gaiaseg_tpu_torch.models import (build_segmentor, encode_arch,
-                                          model_max_arch)
+                                          fill_img_size, model_max_arch)
     from gaiaseg_tpu_torch.tools.train_supernet import cfg_options_to_dict
     from gaiaseg_tpu_torch.utils import Config, resolve_device
 
@@ -70,6 +70,7 @@ def main(argv=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(cfg_options_to_dict(args.cfg_options))
+    fill_img_size(cfg)
     seg = init_segmentor(cfg, args.checkpoint, device=device)
     state = seg.model.state_dict()
     sampler = build_model_sampler(cfg[args.sampler_key])

@@ -71,7 +71,7 @@ def main(argv=None, log=None):
     from gaiaseg_tpu_torch.engine import (configure_numerics, evaluate,
                                           train_segmentor)
     from gaiaseg_tpu_torch.models import (build_segmentor, encode_arch,
-                                          model_max_arch)
+                                          fill_img_size, model_max_arch)
     from gaiaseg_tpu_torch.tools.train_supernet import cfg_options_to_dict
     from gaiaseg_tpu_torch.utils import Config, SweepLog, resolve_device
 
@@ -80,6 +80,7 @@ def main(argv=None, log=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(cfg_options_to_dict(args.cfg_options))
+    fill_img_size(cfg)
     space_path = args.model_space or cfg.get("model_space_path")
     space = ModelSpace.load(space_path)
     if cfg.get("model_sampling_rules"):

@@ -125,7 +125,7 @@ def _train(args, device):
     import torch
 
     from gaiaseg_tpu_torch.engine import configure_numerics, train_segmentor
-    from gaiaseg_tpu_torch.models import build_segmentor
+    from gaiaseg_tpu_torch.models import build_segmentor, fill_img_size
     from gaiaseg_tpu_torch.utils import Config
 
     configure_numerics()
@@ -136,7 +136,7 @@ def _train(args, device):
     torch.manual_seed(args.seed)
     work_dir = args.work_dir or osp.join(
         "work_dirs", osp.splitext(osp.basename(args.config))[0])
-    model = build_segmentor(cfg["model"]).to(device)
+    model = build_segmentor(fill_img_size(cfg)).to(device)
     _, history = train_segmentor(
         model, cfg, work_dir=work_dir, device=device,
         max_iters=args.max_iters, seed=args.seed,
