@@ -162,8 +162,43 @@ Phases, each printing its own lines; any failure exits non-zero:
             (float32, flash off) within 1e-4 of max|ref| of a slide built
             from each window's whole inference.
 
+17. convnext  K1 and K2 at this path's loss shapes (150 classes: decode
+            128x128, aux 32x32 -> 512x512, the any-C instances) against
+            their plain versions in float32 and bf16, each twice
+            bit-equal, and their times; the ConvNeXt-T supernet
+            (``DynamicConvNeXt`` defaults: dims 96/192/384/768, depths
+            3/3/9/3, drop path 0.4) + UPer 512 (pool scales 1/2/3/6) + FCN
+            aux 256 on stage 2, 150 classes, on
+            ``configs/tests/tiny_convnext_uper.py``'s structure (AdamW +
+            clip 5), synthetic 512x512 records kept on the card through
+            ADE20K's train pipeline, batch 8: one sandwich cycle (MAX, MIN
+            at half of every width and depths 2/2/5/2, 2 random), K1 and K2
+            twice an iteration on their any-C instances, K3-K5 never; the
+            warm cycle, the least step times over three warm cycles, a
+            profiled MAX step, peak memory; then one float32 MAX step of
+            the supernet from seed 0 (autocast and TF32 off, eval mode: BN
+            running statistics, no drop path or dropout) on 2 images on
+            the card (K1/K2) against the CPU (plain) from the same weights,
+            beside a float64 step on the card: losses within 1e-5
+            relative; each gradient's distance from float64 with PyTorch's
+            own CUDA convolutions within 1e-3 of its max or within twice
+            the CPU float32's distance (cuDNN's, which round more in
+            float32, printed).
+18. conformer  the same for the ``ElasticConvformer`` defaults (stem 64,
+            widths 256/512/1024, depths 4/4/4, embed 576, 9 heads, FFN 4.0,
+            ``norm_eval``) with the heads at in-channels 256/512/1024/1024;
+            MIN at half of every width, embed 384 with 6 heads, FFN 3.0,
+            depths 2/2/2.
+19. vit_relpos  ``upernet_elastic_vit.py`` at full width with relative
+            positions, token dropout 0.1 and the cls token (1025 tokens),
+            batch 8 of 512x512: a MAX and a MIN step (K1/K2 twice a step,
+            K3-K5 never: the flash gate stays closed, as JAX's), warm and
+            least step times, a profiled MAX step, peak memory, the float32
+            card-vs-CPU MAX step.
+
 The train phases (``train``, ``data``, ``deeplab``, ``distill``,
-``vit_train``) run at log interval 1: every step is a full step (BN
+``vit_train``, ``convnext``, ``conformer``, ``vit_relpos``) run at log
+interval 1: every step is a full step (BN
 statistics updated) and synchronized, so its time is the step's.
 
 It then prints the ``kernels`` JSON line, the nvidia-smi line and, last,
@@ -190,7 +225,8 @@ VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
                    "upernet_elastic_vit.py")
 PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
           "eval", "loop", "subnets", "deeplab", "distill", "ddp",
-          "flash_kernels", "vit_segmentor", "vit_train", "vit_eval")
+          "flash_kernels", "vit_segmentor", "vit_train", "vit_eval",
+          "convnext", "conformer", "vit_relpos")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
 REPO_KERNELS = ("fwd_tile", "fwd_tile_any", "bwd_tile", "bwd_tile_any",
@@ -252,6 +288,8 @@ F32_GRAD_RTOL = 1e-4    # grad: max|d| <= 1e-4 * max|ref| (exp/sum order)
 BF16_GRAD_RTOL = 1e-2   # grad returned in bf16: one bf16 ulp is 2^-8
 SEG_GRAD_RTOL = 1e-3    # per-parameter grads after backprop through the
                         # whole float32 network (cuDNN sums in its order)
+F32_SPREAD = 2.0        # a float32 gradient's distance from float64 on the
+                        # card, in units of the CPU float32's own distance
 
 
 class SmokeFailure(Exception):
@@ -2919,6 +2957,354 @@ def phase_vit_eval(ctx):
 
 
 # --------------------------------------------------------------------- #
+# the ConvNeXt / Conformer / relative-position ViT paths: each trains a
+# full-width supernet through train_segmentor on synthetic ADE20K-sized
+# records kept on the card (batch 8 of 512x512 crops, ADE20K's pipeline)
+TINY_CONVNEXT = os.path.join(REPO, "configs", "tests", "tiny_convnext_uper.py")
+BACKBONE_ITERS = 4          # one sandwich cycle: MAX, MIN, 2 random
+ADE_CLASSES = 150
+F32_CHECK_IMAGES = 2        # the float32 card-vs-CPU step's batch
+CONVNEXT_DIMS, CONVNEXT_DEPTHS = [96, 192, 384, 768], [3, 3, 9, 3]
+CONVNEXT_MIN_DEPTHS = [2, 2, 5, 2]
+CONFORMER = {"stem": 64, "widths": [256, 512, 1024], "depths": [4, 4, 4],
+             "embed": 576, "heads": 9, "ffc": 40}
+CONFORMER_MIN = {"stem": 32, "widths": [128, 256, 512], "depths": [2, 2, 2],
+                 "embed": 384, "heads": 6, "ffc": 30}
+# the ConvNeXt and Conformer steps' two losses (N, C, h, w, H, W): 150
+# classes (K1/K2's any-C instances), decode 128x128 (stride 4) and aux
+# 32x32 (stage 2, stride 16) upsampled to the 512x512 labels
+ADE_LOSSES = {"c150_decode": (8, 150, 128, 128, 512, 512),
+              "c150_aux": (8, 150, 32, 32, 512, 512)}
+
+
+def _ade_train(cfg, classes):
+    """``cfg``'s train data: synthetic 512x512 records on the card through
+    ADE20K's train pipeline, batch 8, every step a full one."""
+    from gaiaseg_tpu_torch.utils import Config
+    ade = Config.fromfile(ADE20K)
+    cfg.merge_from_dict({
+        "data.train": {"type": "SyntheticDataset", "size": [512, 512],
+                       "length": 16, "num_classes": classes, "seed": 0,
+                       "cells": 8, "pipeline": ade["train_pipeline"],
+                       "device_cache": True},
+        "data.samples_per_gpu": 8,
+        "img_norm_cfg": {"mean": [123.675, 116.28, 103.53],
+                         "std": [58.395, 57.12, 57.375], "to_rgb": True},
+        "log_config.interval": 1})
+    return cfg
+
+
+def _uper_heads(in_channels):
+    """UPer 512 (pool scales 1, 2, 3, 6) + FCN 256 aux on stage 2 at 0.4,
+    150 classes: the upstream ConvNeXt UPerNet's heads."""
+    ce = {"type": "CrossEntropyLoss"}
+    return {
+        "decode_head": {"type": "DynamicUPerHead", "in_index": [0, 1, 2, 3],
+                        "in_channels": list(in_channels),
+                        "input_transform": "multiple_select",
+                        "channels": 512, "pool_scales": [1, 2, 3, 6],
+                        "dropout_ratio": 0.1, "num_classes": ADE_CLASSES,
+                        "loss_decode": dict(ce, loss_weight=1.0)},
+        "auxiliary_head": {"type": "DynamicFCNHead", "in_index": 2,
+                           "in_channels": in_channels[2], "channels": 256,
+                           "num_convs": 1, "concat_input": False,
+                           "dropout_ratio": 0.1,
+                           "num_classes": ADE_CLASSES,
+                           "loss_decode": dict(ce, loss_weight=0.4)}}
+
+
+def _convnext_cfg():
+    """``configs/tests/tiny_convnext_uper.py`` (its structure, AdamW + clip
+    5, poly LR) at ConvNeXt-T's widths: dims 96/192/384/768, depths
+    3/3/9/3, drop path 0.4, the UPer/FCN heads of ``_uper_heads``; the
+    sandwich cycle MAX, MIN (half of every width, depths 2/2/5/2) and two
+    draws of the tiny config's form (widths in steps of an eighth of MAX,
+    depths from MIN's)."""
+    from gaiaseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(TINY_CONVNEXT)
+    half = [d // 2 for d in CONVNEXT_DIMS]
+    width_key, depth_key = ("arch.backbone.body.width",
+                            "arch.backbone.body.depth")
+    cfg.merge_from_dict({
+        "model.backbone.dims": CONVNEXT_DIMS,
+        "model.backbone.depths": CONVNEXT_DEPTHS,
+        "model.backbone.drop_path_rate": 0.4,
+        **{f"model.{k}": v for k, v in _uper_heads(CONVNEXT_DIMS).items()},
+        "train_sampler": {"type": "concat", "model_samplers": [
+            {"type": "anchor", "anchors": [
+                {"name": "MAX", width_key: CONVNEXT_DIMS,
+                 depth_key: CONVNEXT_DEPTHS},
+                {"name": "MIN", width_key: half,
+                 depth_key: CONVNEXT_MIN_DEPTHS}]},
+            {"type": "repeat", "times": 2, "model_sampler": {
+                "type": "composite", "model_samplers": [
+                    {"type": "range", "key": width_key, "start": half,
+                     "end": CONVNEXT_DIMS,
+                     "step": [d // 8 for d in CONVNEXT_DIMS]},
+                    {"type": "range", "key": depth_key,
+                     "start": CONVNEXT_MIN_DEPTHS, "end": CONVNEXT_DEPTHS,
+                     "step": [1, 1, 1, 1]}]}}]}})
+    return _ade_train(cfg, ADE_CLASSES)
+
+
+def _conformer_meta(name, a):
+    b = "arch.backbone."
+    return {"name": name, b + "stem.width": a["stem"],
+            b + "body.depth": a["depths"],
+            b + "body.block.convblock.width": a["widths"],
+            b + "body.block.embed_dim.width": a["embed"],
+            b + "body.block.transblock.MHA.num_heads": [a["heads"]] * 3,
+            b + "body.block.transblock.FFN.feedforward_channels":
+                [a["ffc"]] * 3}
+
+
+def _conformer_cfg():
+    """The full-width ``ElasticConvformer`` defaults (stem 64, widths
+    256/512/1024, depths 4/4/4, embed 576, 9 heads, FFN ratio 4.0, patch
+    16) with the heads of ``_uper_heads`` at in-channels 256/512/1024/1024,
+    on the tiny ConvNeXt config's structure (AdamW + clip 5, poly LR). MIN
+    is half of every width, embed 384 with 6 heads, FFN ratio 3.0, depths
+    2/2/2; the two draws take each from MIN to MAX."""
+    from gaiaseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(TINY_CONVNEXT)
+    lo, hi = CONFORMER_MIN, CONFORMER
+    b = "arch.backbone."
+
+    def rng(key, start, end, step):
+        return {"type": "range", "key": b + key, "start": start, "end": end,
+                "step": step}
+    cfg["model"]["backbone"] = {
+        "type": "ElasticConvformer", "stem_width": hi["stem"],
+        "body_width": hi["widths"], "body_depth": hi["depths"],
+        "embed_dim": hi["embed"], "num_heads": hi["heads"],
+        "mlp_ratio": hi["ffc"], "patch_size": 16,
+        "out_indices": [0, 1, 2, 3]}
+    cfg.merge_from_dict({
+        **{f"model.{k}": v for k, v in _uper_heads(
+            hi["widths"] + hi["widths"][-1:]).items()},
+        "train_sampler": {"type": "concat", "model_samplers": [
+            {"type": "anchor", "anchors": [_conformer_meta("MAX", hi),
+                                           _conformer_meta("MIN", lo)]},
+            {"type": "repeat", "times": 2, "model_sampler": {
+                "type": "composite", "model_samplers": [
+                    rng("stem.width", lo["stem"], hi["stem"], 16),
+                    rng("body.depth", lo["depths"], hi["depths"], [1] * 3),
+                    rng("body.block.convblock.width", lo["widths"],
+                        hi["widths"], [w // 8 for w in hi["widths"]]),
+                    rng("body.block.embed_dim.width", lo["embed"],
+                        hi["embed"], 64),
+                    rng("body.block.transblock.MHA.num_heads",
+                        [lo["heads"]] * 3, [hi["heads"]] * 3, [1] * 3),
+                    rng("body.block.transblock.FFN.feedforward_channels",
+                        [lo["ffc"]] * 3, [hi["ffc"]] * 3, [5] * 3)]}}]}})
+    return _ade_train(cfg, ADE_CLASSES)
+
+
+def _vit_relpos_cfg():
+    """``upernet_elastic_vit.py`` at full width with relative positions,
+    token dropout 0.1 and the cls token (1025 tokens: the flash gate stays
+    closed, as JAX's ``not use_rel``), ADE20K's pipeline on 19-class
+    records; the sampler's MAX and MIN anchors."""
+    from gaiaseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(VIT)
+    cfg.merge_from_dict({"model.backbone.with_rel_pos": True,
+                         "model.backbone.drop_rate": 0.1,
+                         "model.backbone.with_cls_token": True})
+    anchors = cfg["train_sampler"]["model_samplers"][0]
+    cfg["train_sampler"] = {"type": "concat", "model_samplers": [anchors]}
+    return _ade_train(cfg, 19)
+
+
+def _rel_by_tensor(grads, ref):
+    """max|g - r| / max|r| of each tensor of ``ref``."""
+    return {k: float((grads[k].double() - r.double()).abs().max())
+            / max(float(r.abs().max()), 1e-300) for k, r in ref.items()}
+
+
+def _f32_card_vs_cpu(cfg, tag):
+    """One float32 MAX step (autocast and TF32 off) of the config's
+    supernet from seed 0 in eval mode (as ``phase_segmentor``: BN running
+    statistics, no stochastic depth or dropout) on F32_CHECK_IMAGES
+    synthetic records, on the card (K1/K2; once with cuDNN's convolutions
+    and once with PyTorch's own CUDA ones) and on the CPU (the plain
+    versions), beside a float64 step on the card (the unfused loss) from
+    the same weights. The card's losses within F32_LOSS_RTOL relative of
+    the CPU's. Gradients: the card's (PyTorch's convolutions) distance from
+    float64, max|d| / max|ref| of each tensor, within SEG_GRAD_RTOL or
+    within F32_SPREAD times the CPU float32 step's own distance: a random
+    supernet is ill-conditioned in float32 at some tensors (structural
+    zeros under train-mode BN, a 1x1 pool branch's BN over 2 images, a
+    saturated softmax), so each tensor is held to the precision float32
+    has there. The cuDNN route's distances are printed, not held: cuDNN's
+    float32 convolutions round more (this script on an H100, ConvNeXt:
+    1.6e-3 from float64 with cuDNN, 3.8e-4 without, the CPU's 6.5e-4)."""
+    import torch
+    from gaiaseg_tpu_torch.data import SyntheticDataset
+    from gaiaseg_tpu_torch.engine import prepare_batch
+    from gaiaseg_tpu_torch.models import (build_segmentor, encode_arch,
+                                          model_max_arch)
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    mcfg = cfg["model"]
+    torch.manual_seed(0)
+    model = build_segmentor(mcfg)
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    ds = SyntheticDataset(length=F32_CHECK_IMAGES, size=(512, 512),
+                          num_classes=model.num_classes, seed=5, cells=8)
+    del model
+    img, gt = prepare_batch([ds[i] for i in range(len(ds))],
+                            cfg["img_norm_cfg"], "cpu")
+    gt[:, :8] = 255
+    arch = encode_arch(model_max_arch(mcfg))
+    res = {}
+    for route, device, dtype, cudnn in (
+            ("cudnn", "cuda", torch.float32, True),
+            ("native", "cuda", torch.float32, False),
+            ("cpu", "cpu", torch.float32, True),
+            ("float64", "cuda", torch.float64, True)):
+        m = build_segmentor(mcfg)
+        m.load_state_dict(state)
+        m = m.to(device, dtype).eval()
+        if dtype == torch.float64:
+            m.fused_loss = False     # the kernels compute in float32
+        reset_launches()
+        torch.backends.cudnn.enabled = cudnn
+        t0 = time.perf_counter()
+        try:
+            total, _ = m.forward_train(img.to(device, dtype),
+                                       gt.to(device), arch)
+            total.backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.enabled = True
+        res[route] = (float(total.detach()), {
+            k: p.grad.detach().cpu() for k, p in m.named_parameters()
+            if p.grad is not None}, dict(LAUNCHES),
+            time.perf_counter() - t0)
+        del m
+    cpu, ref = res["cpu"], res["float64"][1]
+    to64 = {r: _rel_by_tensor(res[r][1], ref)
+            for r in ("native", "cudnn", "cpu")}
+    margin = sorted((to64["native"][k] / max(
+        SEG_GRAD_RTOL, F32_SPREAD * to64["cpu"][k]), k) for k in ref)
+    errs = {r: _grad_errors(res[r][0], res[r][1], cpu[0], cpu[1])
+            for r in ("native", "cudnn")}
+    errs.update({f"{r}_to_float64": max(to64[r].values())
+                 for r in to64})
+    errs.update({"worst_margin": margin[-1], "cpu_s": cpu[3],
+                 "float64_loss": res["float64"][0]})
+    for r in ("native", "cudnn"):
+        e, launches = errs[r], res[r][2]
+        print(f"[{tag}] float32 MAX step of {F32_CHECK_IMAGES} 512x512 "
+              f"images, card ({r} convolutions, K1/K2 "
+              f"{launches['resize_ce_fwd']}/{launches['resize_ce_bwd']}) vs "
+              f"CPU (plain, {cpu[3]:.1f}s): loss {e['loss']:.6f} / "
+              f"{e['ref_loss']:.6f} (rel {e['loss_rel']:.1e}), worst grad "
+              f"max|d|/max|ref| {e['worst_grad_rel']:.1e} "
+              f"({e['worst_tensor']}), median {e['median_grad_rel']:.1e}")
+        check(set(res[r][1]) == set(cpu[1]) == set(ref)
+              and launches["resize_ce_fwd"] == launches["resize_ce_bwd"] == 2
+              and e["loss_rel"] <= F32_LOSS_RTOL,
+              f"{tag}: card ({r}) vs CPU float32 step {e}, launches "
+              f"{launches}")
+    print(f"[{tag}] worst gradient distance from the card's float64 step: "
+          + ", ".join(f"{r} {errs[f'{r}_to_float64']:.1e}" for r in to64)
+          + f"; the native route's worst tensor {margin[-1][1]} at "
+          f"{margin[-1][0]:.2f} of its limit")
+    check(margin[-1][0] <= 1.0,
+          f"{tag}: card (native convolutions) float32 gradients from "
+          f"float64: {margin[-3:]} of their limits")
+    return errs
+
+
+def _train_backbone_path(ctx, tag, cfg, names, describe):
+    """One sandwich cycle of ``cfg`` through ``train_segmentor`` on the
+    card (K1/K2 twice an iteration on the instance of the config's class
+    count, K3-K5 never), the cycle again warm, the least step times over
+    STEADY_CYCLES warm cycles, a profiled MAX step, peak memory, then the
+    float32 card-vs-CPU MAX step. Records the phase in ``ctx[tag]``."""
+    import torch
+    from gaiaseg_tpu_torch.engine import train_segmentor
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    model = _build_model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[{tag}] {describe}: {n_params / 1e6:.2f} M parameters")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    iters = len(names)
+    history = train_segmentor(model, cfg, device="cuda", max_iters=iters,
+                              seed=0, log=lambda s: print(f"[{tag}] {s}")
+                              )[1]["loss"]
+    launches = dict(LAUNCHES)
+    got = [r["arch"] for r in history]
+    check(got == names, f"{tag}: arch sequence {got}, want {names}")
+    check(all(math.isfinite(r["loss"]) for r in history),
+          f"{tag}: non-finite loss in {[r['loss'] for r in history]}")
+    for k in ("resize_ce_fwd", "resize_ce_bwd"):
+        check(launches[k] == 2 * iters,
+              f"{tag}: {k} launched {launches[k]} times in {iters} "
+              "iterations (want 2 per iteration)")
+    check(not any(launches[k] for k in FLASH_KERNELS),
+          f"{tag}: flash kernels launched {launches}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    warm = train_segmentor(model, cfg, device="cuda", max_iters=iters,
+                           seed=0)[1]["loss"]
+    print(f"[{tag}] launches {launches} over {iters} iterations; peak "
+          f"memory {peak:.2f} GB on {ctx['nvidia_smi']}")
+    print(f"[{tag}] warm cycle step ms: " + ", ".join(
+        f"{r['arch']} {r['step_ms']:.1f}" for r in warm))
+    out = {"params_m": n_params / 1e6, "history": history,
+           "warm_history": warm, "launches": launches, "peak_mem_gb": peak}
+    out.update(_steady_step_ms(model, cfg, warm, tag))
+    out["profile"] = _profile_max_step(model, cfg, warm, tag)
+    ours = out["profile"]["repo_kernels"]
+    if out["profile"]["device_busy_ms"]:
+        want = ("fwd_tile_any", "bwd_tile_any") \
+            if model.num_classes != 19 else ("fwd_tile", "bwd_tile")
+        check(set(ours) == set(want),
+              f"{tag}: the profiled step ran {sorted(ours)}, want the "
+              f"instances {want}")
+    del model
+    out["card_vs_cpu"] = _f32_card_vs_cpu(cfg, tag)
+    ctx[tag] = out
+
+
+def phase_convnext(ctx):
+    import torch
+    errs = {"resize_ce_fwd": 0.0, "resize_ce_bwd": 0.0}
+    checks, timings = [], {}
+    for name, shape in ADE_LOSSES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_case(name, shape, dtype, seed=1, errs=errs, log=checks)
+        _time_case(name, shape, timings)
+    _train_backbone_path(
+        ctx, "convnext", _convnext_cfg(), ["MAX", "MIN", "random", "random"],
+        "ConvNeXt-T supernet (dims 96/192/384/768, depths 3/3/9/3, drop "
+        "path 0.4) + UPer 512 + FCN aux 256, 150 classes, AdamW + clip 5")
+    ctx["convnext"].update(kernel_checks=checks, kernel_timings=timings,
+                           max_abs_err=errs)
+
+
+def phase_conformer(ctx):
+    _train_backbone_path(
+        ctx, "conformer", _conformer_cfg(),
+        ["MAX", "MIN", "random", "random"],
+        "Conformer supernet (stem 64, widths 256/512/1024, depths 4/4/4, "
+        "embed 576, 9 heads, FFN 4.0, norm_eval) + UPer 512 + FCN aux 256, "
+        "150 classes, AdamW + clip 5")
+
+
+def phase_vit_relpos(ctx):
+    _train_backbone_path(
+        ctx, "vit_relpos", _vit_relpos_cfg(), ["MAX", "MIN"],
+        "elastic ViT-B supernet with relative positions (tables of "
+        "distance 14), token dropout 0.1, the cls token (1025 tokens) + "
+        "neck + UPer 512 + FCN aux 256, 19 classes, AdamW + clip 1.0")
+
+
+# --------------------------------------------------------------------- #
 REPLACES = {
     "resize_ce_fwd": "gaiaseg_tpu/ops/pallas/resize_ce.py:109 (_fwd_kernel "
                      "via _sums :175)",
@@ -2935,16 +3321,18 @@ REPLACES = {
 
 def _path_launches(ctx, k):
     """K1/K2 launches over the main paths that ran: the flagship train
-    cycle and the distill phase's BEiT-teacher cycle, each counted from 0."""
-    runs = [c[k] for c in (ctx.get("launches"),
-                           (ctx.get("distill") or {}).get("launches")) if c]
+    cycle, the distill phase's BEiT-teacher cycle and the ConvNeXt,
+    Conformer and relative-position ViT cycles, each counted from 0."""
+    runs = [c[k] for c in [ctx.get("launches")] + [
+        (ctx.get(tag) or {}).get("launches")
+        for tag in ("distill", "convnext", "conformer", "vit_relpos")] if c]
     return sum(runs) if runs else None
 
 
 def kernels_line(ctx):
     """One entry per kernel. K1/K2: times per flagship train step (its
-    decode-loss and aux-loss launches added), launches from the flagship
-    train cycle and the distill cycle. K3-K5: times per launch at the ViT
+    decode-loss and aux-loss launches added), launches from the main
+    paths' cycles (``_path_launches``). K3-K5: times per launch at the ViT
     train shape, launches from the ViT train cycle."""
     out = []
     timings = ctx.get("kernel_timings", {})
@@ -3008,7 +3396,7 @@ def main(argv) -> int:
         return 1
     for path in (FLAGSHIP, VIT, ADE20K, FLOPS_CFG, RULES_CFG, FT_CFG,
                  *EXTRACT_CFGS, DEEPLAB, V1C, V1C_EXTRACT, DISTILL_BEIT,
-                 DISTILL_SELF):
+                 DISTILL_SELF, TINY_CONVNEXT):
         if not os.path.isfile(path):
             print(f"chip_smoke: config missing: {path}", file=sys.stderr)
             return 1
@@ -3049,6 +3437,9 @@ def main(argv) -> int:
                    "vit_train": ctx.get("vit_train"),
                    "vit_profile": ctx.get("vit_profile"),
                    "vit_eval": ctx.get("vit_eval"),
+                   "convnext": ctx.get("convnext"),
+                   "conformer": ctx.get("conformer"),
+                   "vit_relpos": ctx.get("vit_relpos"),
                    "data": ctx.get("data"),
                    "kernels": line["kernels"]}, f, indent=2, default=str)
     print(json.dumps(line))

@@ -134,6 +134,8 @@ def calibrate_bn(model, dataset, arch, *, num_batches: int = 16,
         broadcast_tensors([t for _, m in bn_modules(model)
                            for t in (m.running_mean, m.running_var)])
         return model
+    if not bn_modules(model):
+        return model       # nothing to re-estimate
     test_params = test_params or TestPipelineParams()
     param = next(model.parameters())
     device = param.device if device is None else device

@@ -10,8 +10,10 @@ reference mmseg / timm layout the port's modules use, so the JAX package's
 own ``segmentor_state_dict_to_variables`` (``engine/torch_convert.py:294``)
 and ``vit_state_dict_to_params`` (``:489``) map the result back. Covers the
 DynamicResNet (unrolled blocks; the plain or deep stem, ``stem0-2`` ->
-mmseg's ``stem.{0,1,3,4,6,7}``; avg_down's ``downsample.{1,2}``) and
-ElasticTransformer backbones, the multi-level neck and the PSP/UPer/FCN
+mmseg's ``stem.{0,1,3,4,6,7}``; avg_down's ``downsample.{1,2}``),
+ElasticTransformer (its relative-position tables too), DynamicConvNeXt
+(the upstream ConvNeXt layout) and ElasticConvformer backbones, the
+multi-level neck and the PSP/UPer/FCN
 (with ``conv_cat``)/ASPP/DeepLabV3+ heads, and a distiller's teacher
 (``t_backbone``, a BEiT or a DynamicResNet, ``t_neck``, ``t_decode_head``)
 into its ``t_*`` keys: BEiT in the official layout, its k bias dropped (a
@@ -104,13 +106,43 @@ def backbone_state_dict(p: Dict[str, Any], s: Dict[str, Any],
     return sd
 
 
-def vit_state_dict(p: Dict[str, Any], prefix: str = "backbone"
-                   ) -> Dict[str, torch.Tensor]:
-    """``backbone_m`` params of an ElasticTransformer -> state_dict."""
-    if any(k.startswith("rel_pos") for k in p.get("layer0", {}).get(
-            "attn", {})):
-        raise NotImplementedError("relative positions wait for a later "
-                                  "slice")
+def attn_state(p: Dict[str, Any], prefix: str,
+               rel_max_dist: int = 14) -> Dict[str, torch.Tensor]:
+    """A JAX ``ElasticMHA`` (``w_q/w_k/w_v``, ``proj``, the relative-position
+    tables ``rel_pos``/``rel_pos_v`` when present) -> the fused ``qkv``,
+    ``proj`` and ``rel_pos_embed_k``/``_v`` entries under ``prefix``. JAX
+    sizes every table for distance 14 whatever the backbone's
+    ``rel_max_dist`` (ROADMAP C18); its index reads the first
+    ``2 * rel_max_dist + 2`` rows, the port's tables' size."""
+    qkv = [linear_state(p[n]) for n in ("w_q", "w_k", "w_v")]
+    sd = {f"{prefix}.qkv.weight": torch.cat([e["weight"] for e in qkv]),
+          f"{prefix}.qkv.bias": torch.cat([e["bias"] for e in qkv])}
+    _put(sd, f"{prefix}.proj", linear_state(p["proj"]))
+    for name, slot in (("rel_pos", "rel_pos_embed_k"),
+                       ("rel_pos_v", "rel_pos_embed_v")):
+        if name in p:
+            for table in ("rel_rows", "rel_cols"):
+                sd[f"{prefix}.{slot}.{table}"] = _t(
+                    p[name][table])[:2 * rel_max_dist + 2]
+    return sd
+
+
+def encoder_layer_state(p: Dict[str, Any], prefix: str,
+                        rel_max_dist: int = 14) -> Dict[str, torch.Tensor]:
+    """A JAX pre-norm transformer layer (the ViT's ``layer{i}``, Conformer's
+    ``trans_1`` and ``trans_block``) -> the timm names under ``prefix``."""
+    sd = attn_state(p["attn"], f"{prefix}.attn", rel_max_dist)
+    for n in ("norm1", "norm2"):
+        _put(sd, f"{prefix}.{n}", ln_state(p[n]))
+    for n in ("fc1", "fc2"):
+        _put(sd, f"{prefix}.mlp.{n}", linear_state(p[n]))
+    return sd
+
+
+def vit_state_dict(p: Dict[str, Any], prefix: str = "backbone",
+                   rel_max_dist: int = 14) -> Dict[str, torch.Tensor]:
+    """``backbone_m`` params of an ElasticTransformer (its ``rel_max_dist``
+    given) -> state_dict."""
     pre = f"{prefix}." if prefix else ""
     sd = {f"{pre}pos_embed": _t(p["pos_embed"])}
     if "cls_token" in p:
@@ -118,18 +150,72 @@ def vit_state_dict(p: Dict[str, Any], prefix: str = "backbone"
     _put(sd, pre + "patch_embed.proj", conv_state(p["patch_embed"]))
     i = 0
     while f"layer{i}" in p:
-        lp, blk = p[f"layer{i}"], f"{pre}blocks.{i}"
-        attn = lp["attn"]
-        qkv = [linear_state(attn[n]) for n in ("w_q", "w_k", "w_v")]
-        sd[f"{blk}.attn.qkv.weight"] = torch.cat([e["weight"] for e in qkv])
-        sd[f"{blk}.attn.qkv.bias"] = torch.cat([e["bias"] for e in qkv])
-        _put(sd, f"{blk}.attn.proj", linear_state(attn["proj"]))
-        for n in ("norm1", "norm2"):
-            _put(sd, f"{blk}.{n}", ln_state(lp[n]))
-        for n in ("fc1", "fc2"):
-            _put(sd, f"{blk}.mlp.{n}", linear_state(lp[n]))
+        sd.update(encoder_layer_state(p[f"layer{i}"], f"{pre}blocks.{i}",
+                                      rel_max_dist))
         i += 1
     return sd
+
+
+def _tree_state(p: Dict[str, Any], s: Dict[str, Any], prefix: str,
+                rename) -> Dict[str, torch.Tensor]:
+    """A JAX module tree -> state_dict entries by the kind of each leaf
+    module: a 4-D ``kernel`` a conv (HWIO -> OIHW, a depthwise ``[k, k, 1,
+    C]`` -> ``[C, 1, k, k]``), a 2-D one a linear; a ``scale`` a BN when
+    it has ``batch_stats``, else a LayerNorm; a transformer layer (an
+    ``attn`` beside ``norm1``) by ``encoder_layer_state``; a bare array
+    (``gamma``, ``cls_token``) as it is. ``rename`` maps a JAX name to the
+    port's."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, sub in p.items():
+        key = f"{prefix}.{rename(name)}" if prefix else rename(name)
+        stats = (s or {}).get(name)
+        if not isinstance(sub, dict):
+            sd[key] = _t(sub)
+        elif "kernel" in sub:
+            _put(sd, key, conv_state(sub) if np.ndim(sub["kernel"]) == 4
+                 else linear_state(sub))
+        elif "scale" in sub:
+            _put(sd, key, bn_state(sub, stats) if stats else ln_state(sub))
+        elif "attn" in sub and "norm1" in sub:
+            sd.update(encoder_layer_state(sub, key))
+        else:
+            sd.update(_tree_state(sub, stats, key, rename))
+    return sd
+
+
+def _convnext_name(name: str) -> str:
+    """JAX ``stem``, ``stem_ln``, ``ds{i}_ln``, ``ds{i}_conv``,
+    ``stage{i}_block{j}`` -> the upstream ConvNeXt layout."""
+    fixed = {"stem": "downsample_layers.0.0",
+             "stem_ln": "downsample_layers.0.1"}
+    if name in fixed:
+        return fixed[name]
+    m = re.fullmatch(r"ds(\d)_(ln|conv)", name)
+    if m:
+        return f"downsample_layers.{m.group(1)}.{int(m.group(2) == 'conv')}"
+    m = re.fullmatch(r"stage(\d+)_block(\d+)", name)
+    return f"stages.{m.group(1)}.{m.group(2)}" if m else name
+
+
+def convnext_state_dict(p: Dict[str, Any], prefix: str = "backbone"
+                        ) -> Dict[str, torch.Tensor]:
+    """``backbone_m`` params of a DynamicConvNeXt -> state_dict."""
+    return _tree_state(p, {}, prefix, _convnext_name)
+
+
+def _convformer_name(name: str) -> str:
+    """JAX ``stage{s}_block{b}`` -> ``stages.{s}.{b}``; the rest keep
+    their names."""
+    m = re.fullmatch(r"stage(\d+)_block(\d+)", name)
+    return f"stages.{m.group(1)}.{m.group(2)}" if m else name
+
+
+def convformer_state_dict(p: Dict[str, Any], s: Dict[str, Any],
+                          prefix: str = "backbone"
+                          ) -> Dict[str, torch.Tensor]:
+    """``backbone_m`` params and BN statistics of an ElasticConvformer ->
+    state_dict."""
+    return _tree_state(p, s, prefix, _convformer_name)
 
 
 def deconv_state(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -247,8 +333,15 @@ def variables_to_state_dict(variables_np: Dict[str, Any],
                             ) -> Dict[str, torch.Tensor]:
     params = variables_np["params"]
     stats = variables_np.get("batch_stats", {})
-    if "patch_embed" in params["backbone_m"]:
-        sd = vit_state_dict(params["backbone_m"])
+    bb_type = model_cfg["backbone"].get("type")
+    if bb_type == "DynamicConvNeXt":
+        sd = convnext_state_dict(params["backbone_m"])
+    elif bb_type == "ElasticConvformer":
+        sd = convformer_state_dict(params["backbone_m"],
+                                   stats.get("backbone_m", {}))
+    elif "patch_embed" in params["backbone_m"]:
+        sd = vit_state_dict(params["backbone_m"], rel_max_dist=int(
+            model_cfg["backbone"].get("rel_max_dist", 14)))
     else:
         sd = backbone_state_dict(
             params["backbone_m"], stats["backbone_m"],

@@ -20,7 +20,9 @@ modules at its own MAX, so it equals the supernet at the arch.
 ``build_head`` checks a head's ``in_channels`` (and a DeepLabV3+ head's
 ``c1_in_channels``) against the backbone's output channels, where Flax
 infers input widths, so ``subnet_model_cfg`` also sets them to the
-subnet's. A 3-list stem width becomes the subnet's deep stem.
+subnet's. A 3-list stem width becomes the subnet's deep stem. Only a
+DynamicResNet backbone can be extracted; any other raises (the JAX
+package returns the MAX net for them, ROADMAP C16).
 """
 from __future__ import annotations
 
@@ -176,6 +178,13 @@ def extract_subnet(model_cfg: Dict[str, Any],
     target shapes come from the subnet built on the ``meta`` device
     (nothing allocated); a target entry the supernet lacks raises
     ``KeyError``. The tensors stay on ``state_dict``'s device."""
+    bb_type = model_cfg["backbone"].get("type")
+    if bb_type != "DynamicResNet":
+        raise NotImplementedError(
+            f"extracting a subnet of a {bb_type} backbone: only "
+            "DynamicResNet subnets can be extracted (the JAX package's "
+            "subnet_model_cfg writes body_width/body_depth, which other "
+            "backbones do not read, and returns the MAX net; ROADMAP C16)")
     max_arch = model_max_arch(model_cfg)
     arch = canonical_arch(max_arch, meta)
     sub_cfg = subnet_model_cfg(model_cfg, arch)

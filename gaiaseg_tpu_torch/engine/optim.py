@@ -149,10 +149,12 @@ def clip_grad_norm(params: Iterable[torch.nn.Parameter],
                    max_norm: float) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: every gradient times
     ``max_norm / norm`` when the global norm is at least ``max_norm``.
-    Returns the norm before clipping (no host sync)."""
+    Returns the norm before clipping (no host sync), in float32 (float64
+    for float64 gradients)."""
     grads = [p.grad for p in params if p.grad is not None]
     norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+        [torch.linalg.vector_norm(g.to(torch.promote_types(
+            g.dtype, torch.float32))) for g in grads]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)

@@ -1,5 +1,8 @@
 from .beit import BEiT
+from .dynamic_convnext import DynamicConvNeXt
 from .dynamic_resnet import DynamicResNet
+from .elastic_convformer import ElasticConvformer
 from .elastic_transformer import ElasticTransformer
 
-__all__ = ["BEiT", "DynamicResNet", "ElasticTransformer"]
+__all__ = ["BEiT", "DynamicConvNeXt", "DynamicResNet", "ElasticConvformer",
+           "ElasticTransformer"]

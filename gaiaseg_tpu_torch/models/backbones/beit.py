@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.dynamic_layers import _pair
+from ...ops.dynamic_layers import DynChannelLayerNorm, _pair
 from ...utils.registry import BACKBONES
 
 
@@ -128,14 +128,6 @@ class BEiTBlock(nn.Module):
         return x + self.mlp["fc2"](z) * self.gamma_2
 
 
-class ChannelLayerNorm(nn.LayerNorm):
-    """LayerNorm over dim 1 of an NCHW map (JAX's ``fpn1_norm`` normalises
-    the channels of its NHWC map)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-
-
 @BACKBONES.register_module(name=["BEiT", "Beit"])
 class BEiT(nn.Module):
     def __init__(self, embed_dim: int = 768, depth: int = 12,
@@ -184,7 +176,7 @@ class BEiT(nn.Module):
         def deconv():
             return nn.ConvTranspose2d(d, d, 2, 2)
         # flax's nn.gelu (fpn1) is the tanh form, the blocks' the exact one
-        self.fpn1 = nn.Sequential(deconv(), ChannelLayerNorm(d, eps=1e-6),
+        self.fpn1 = nn.Sequential(deconv(), DynChannelLayerNorm(d),
                                   nn.GELU(approximate="tanh"), deconv())
         self.fpn2 = nn.Sequential(deconv())
         self.fpn3 = nn.Identity()
@@ -193,11 +185,12 @@ class BEiT(nn.Module):
     def out_channels(self) -> Tuple[int, ...]:
         return tuple(self.embed_dim for _ in self.out_indices)
 
-    def forward(self, x: torch.Tensor,
-                arch: Optional[Dict] = None) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, arch: Optional[Dict] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         """``[N,3,H,W]`` -> four maps ``[N, D, .]`` at strides 4, 8, 16, 32
-        of the patch grid's 16. ``arch`` is ignored (the teacher is
-        static)."""
+        of the patch grid's 16. ``arch`` and ``generator`` are ignored (the
+        teacher is static and draws nothing)."""
         b = x.shape[0]
         gh, gw = x.shape[2] // self.patch_size, x.shape[3] // self.patch_size
         if (gh, gw) != self.window and self.relative_position_index \

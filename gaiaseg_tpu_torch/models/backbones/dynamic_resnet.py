@@ -21,7 +21,7 @@ not here, as in JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -117,8 +117,10 @@ class DynamicResNet(nn.Module):
             x = F.relu(bn(conv(x, w)))
         return x
 
-    def forward(self, x: torch.Tensor,
-                arch: Dict[str, Any]) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, arch: Dict[str, Any],
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        """``generator`` is unused: the backbone draws nothing."""
         widths, depths = arch["body"]["width"], arch["body"]["depth"]
         x = self._stem(x, arch["stem"]["width"])
         x = F.max_pool2d(x, 3, 2, 1)

@@ -16,6 +16,21 @@ mlp.fc2``; q, k and v are the row ranges ``[0, h*64)``, ``[inner, inner +
 h*64)`` and ``[2*inner, 2*inner + h*64)`` of the fused ``qkv`` weight), so
 a converted ViT checkpoint loads as it is.
 
+``drop_rate`` is JAX's ``pos_drop``: dropout on the tokens after the cls
+concat, in training only, drawn from the step's generator.
+
+``with_rel_pos`` adds JAX's 2D relative positions to every layer
+(``ElasticRelativePosition2D``): per layer a score-side table pair
+``attn.rel_pos_embed_k.{rel_rows,rel_cols}`` and a value-side pair
+``attn.rel_pos_embed_v.{rel_rows,rel_cols}``, each ``[2 * rel_max_dist +
+2, 64]``, indexed by the clipped row and column distances of two tokens
+(the last entry is the cls token's). The score ``q . (T_r[dr] + T_c[dc])``
+is added unscaled to the scaled ``q . k`` logits; the value side ``sum_j
+attn[i, j] (T_r[dr] + T_c[dc])`` is added to each active head's output
+before ``proj``. A row distance depends only on the two tokens' rows, so
+both sides run on per-row and per-column groups of the keys (``[n, gh +
+1, 64]`` gathered tables); no ``[n, n, 64]`` tensor is built.
+
 Attention takes the flash kernels (``ops/cuda/flash_attention.py``) under
 the JAX gate: ``use_flash``, a CUDA tensor, a sequence length that is a
 multiple of 128 and no relative positions. With the cls token a 512x512
@@ -26,7 +41,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.cuda.flash_attention import flash_attention
+from ...ops.dropout import dropout
 from ...ops.dynamic_layers import DynConv2d, DynLayerNorm, DynLinear
 from ...utils.registry import BACKBONES
 
@@ -79,20 +95,126 @@ def resize_pos_grid(grid: torch.Tensor, out_hw: Tuple[int, int]
     return out.reshape(1, out_hw[0] * out_hw[1], -1)
 
 
+def relative_index_2d(gh: int, gw: int, max_dist: int,
+                      with_cls: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """Clipped row and column distance indices ``[N, N]`` of a ``gh x gw``
+    grid (a copy of the JAX function): entries ``0 .. 2*max_dist`` are the
+    distances ``clip(a - b, -max_dist, max_dist) + max_dist``, and with the
+    cls token (token 0) its row and column hold ``2*max_dist + 1``."""
+    rows = np.arange(gh).repeat(gw)
+    cols = np.tile(np.arange(gw), gh)
+    dr = np.clip(rows[:, None] - rows[None, :], -max_dist, max_dist) \
+        + max_dist
+    dc = np.clip(cols[:, None] - cols[None, :], -max_dist, max_dist) \
+        + max_dist
+    if with_cls:
+        cls_idx = 2 * max_dist + 1
+        n = gh * gw + 1
+        full_r = np.full((n, n), cls_idx, np.int32)
+        full_c = np.full((n, n), cls_idx, np.int32)
+        full_r[1:, 1:] = dr
+        full_c[1:, 1:] = dc
+        return full_r, full_c
+    return dr.astype(np.int32), dc.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def relative_groups(gh: int, gw: int, max_dist: int,
+                    with_cls: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """The table index of each (query, key group): ``[N, G_r]`` for the
+    row groups (the cls key, then one group per grid row) and ``[N, G_c]``
+    for the column groups. ``relative_index_2d``'s ``[i, j]`` entry is the
+    entry of ``j``'s group: row groups are keys ``[0], [1, 1 + gw), ...``,
+    column groups ``[0], {1, 1 + gw, ...}, ...`` (without the cls token,
+    the same less the first group and the offset 1)."""
+    rel_r, rel_c = relative_index_2d(gh, gw, max_dist, with_cls)
+    off = int(with_cls)
+    rep_r = [0] * off + [off + y * gw for y in range(gh)]
+    rep_c = [0] * off + [off + x for x in range(gw)]
+    return (rel_r[:, rep_r].astype(np.int64),
+            rel_c[:, rep_c].astype(np.int64))
+
+
+def expand_groups(s_r: torch.Tensor, s_c: torch.Tensor,
+                  with_cls: bool) -> torch.Tensor:
+    """Per-group values ``[..., G_r]`` and ``[..., G_c]`` -> their sum at
+    every key ``[..., N]`` (key ``1 + y*gw + x`` takes row group ``y`` and
+    column group ``x``)."""
+    if not with_cls:
+        return (s_r[..., :, None] + s_c[..., None, :]).flatten(-2)
+    grid = (s_r[..., 1:, None] + s_c[..., None, 1:]).flatten(-2)
+    return torch.cat([s_r[..., :1] + s_c[..., :1], grid], dim=-1)
+
+
+def sum_groups(attn: torch.Tensor, gh: int, gw: int, with_cls: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The adjoint of ``expand_groups``: ``attn [..., N]`` summed over the
+    keys of each row group and of each column group."""
+    off = int(with_cls)
+    grid = attn[..., off:].unflatten(-1, (gh, gw))
+    a_r, a_c = grid.sum(-1), grid.sum(-2)
+    if with_cls:
+        a_r = torch.cat([attn[..., :1], a_r], dim=-1)
+        a_c = torch.cat([attn[..., :1], a_c], dim=-1)
+    return a_r, a_c
+
+
+class ElasticRelativePosition2D(nn.Module):
+    """A row table and a column table of per-distance embeddings (JAX
+    ``ElasticRelativePosition2D``): ``R[i, j] = T_r[dr] + T_c[dc]``.
+    ``index`` is ``(groups_r, groups_c, gh, gw, with_cls)`` with the groups
+    of ``relative_groups`` on the device."""
+
+    def __init__(self, max_dist: int = 14, head_dim: int = HEAD_DIM):
+        super().__init__()
+        entries = 2 * int(max_dist) + 2     # + the cls slot
+        self.rel_rows = nn.Parameter(torch.empty(entries, head_dim))
+        self.rel_cols = nn.Parameter(torch.empty(entries, head_dim))
+        nn.init.trunc_normal_(self.rel_rows, std=0.02)
+        nn.init.trunc_normal_(self.rel_cols, std=0.02)
+
+    def _tables(self, index, dtype):
+        groups_r, groups_c = index[:2]
+        return F.embedding(groups_r, self.rel_rows).to(dtype), \
+            F.embedding(groups_c, self.rel_cols).to(dtype)   # [N, G, d]
+
+    def scores(self, q: torch.Tensor, index) -> torch.Tensor:
+        """``q [B, N, h, d]`` -> ``q_i . R[i, j]`` as ``[B, h, N, N]``."""
+        e_r, e_c = self._tables(index, q.dtype)
+        s_r = torch.einsum("bnhd,ngd->bhng", q, e_r)
+        s_c = torch.einsum("bnhd,ngd->bhng", q, e_c)
+        return expand_groups(s_r, s_c, index[4])
+
+    def values(self, attn: torch.Tensor, index) -> torch.Tensor:
+        """``attn [B, h, N, N]`` -> ``sum_j attn[i, j] R[i, j]`` as ``[B,
+        N, h, d]``."""
+        e_r, e_c = self._tables(index, attn.dtype)
+        a_r, a_c = sum_groups(attn, index[2], index[3], index[4])
+        return torch.einsum("bhng,ngd->bnhd", a_r, e_r) \
+            + torch.einsum("bhng,ngd->bnhd", a_c, e_c)
+
+
 class ElasticMHA(nn.Module):
     """Multi-head self-attention over the first ``num_heads`` heads of the
-    MAX ``qkv``/``proj`` weights and the active embed width."""
+    MAX ``qkv``/``proj`` weights and the active embed width, with JAX's
+    relative positions when ``with_rel_pos``."""
 
     def __init__(self, embed_dim: int, max_heads: int,
-                 use_flash: bool = False):
+                 use_flash: bool = False, with_rel_pos: bool = False,
+                 rel_max_dist: int = 14):
         super().__init__()
         self.max_heads = int(max_heads)
         self.use_flash = bool(use_flash)
         inner = self.max_heads * HEAD_DIM
         self.qkv = DynLinear(embed_dim, 3 * inner)
         self.proj = DynLinear(inner, embed_dim)
+        self.rel_pos_embed_k = self.rel_pos_embed_v = None
+        if with_rel_pos:
+            self.rel_pos_embed_k = ElasticRelativePosition2D(rel_max_dist)
+            self.rel_pos_embed_v = ElasticRelativePosition2D(rel_max_dist)
 
-    def forward(self, x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, num_heads: int,
+                rel_index=None) -> torch.Tensor:
         b, n, c = x.shape
         inner, width = self.max_heads * HEAD_DIM, num_heads * HEAD_DIM
         w, bias = self.qkv.weight, self.qkv.bias
@@ -103,32 +225,46 @@ class ElasticMHA(nn.Module):
         qkv = F.linear(x, w[:, :c], bias).view(b, n, 3, num_heads, HEAD_DIM)
         q, k, v = qkv.unbind(2)          # [B, N, h, 64] strided views
         scale = 1.0 / math.sqrt(HEAD_DIM)
-        if self.use_flash and x.is_cuda and n % 128 == 0:
+        rel = self.rel_pos_embed_k is not None and rel_index is not None
+        if self.use_flash and x.is_cuda and n % 128 == 0 and not rel:
             out = flash_attention(q * scale, k, v)
         else:
-            logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() * scale
+            # float32 logits and softmax (float64 for float64 inputs)
+            wide = torch.promote_types(q.dtype, torch.float32)
+            logits = torch.einsum("bnhd,bmhd->bhnm", q, k).to(wide) * scale
+            if rel:      # unscaled, as JAX adds it
+                logits = logits + self.rel_pos_embed_k.scores(
+                    q, rel_index).to(wide)
             attn = torch.softmax(logits, dim=-1).to(q.dtype)
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+            if rel:
+                out = out + self.rel_pos_embed_v.values(attn, rel_index)
         return self.proj(out.reshape(b, n, width), c)
 
 
 class ElasticEncoderLayer(nn.Module):
-    """Pre-norm transformer layer: x + attn(norm1(x)), then + mlp(norm2)."""
+    """Pre-norm transformer layer: x + attn(norm1(x)), then + mlp(norm2).
+    ``gelu`` is the MLP's GELU: ``'none'`` the exact (erf) form of the
+    ViT's layers, ``'tanh'`` flax's default of Conformer's blocks."""
 
     def __init__(self, embed_dim: int, max_heads: int, max_ffn: int,
-                 use_flash: bool = False):
+                 use_flash: bool = False, with_rel_pos: bool = False,
+                 rel_max_dist: int = 14, gelu: str = "none"):
         super().__init__()
+        self.gelu = gelu
         self.norm1 = DynLayerNorm(embed_dim)
-        self.attn = ElasticMHA(embed_dim, max_heads, use_flash)
+        self.attn = ElasticMHA(embed_dim, max_heads, use_flash, with_rel_pos,
+                               rel_max_dist)
         self.norm2 = DynLayerNorm(embed_dim)
         self.mlp = nn.ModuleDict({"fc1": DynLinear(embed_dim, max_ffn),
                                   "fc2": DynLinear(max_ffn, embed_dim)})
 
     def forward(self, x: torch.Tensor, num_heads: int,
-                ffn_channels: int) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), num_heads)
+                ffn_channels: int, rel_index=None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), num_heads, rel_index)
         z = self.mlp["fc1"](self.norm2(x), ffn_channels)
-        return x + self.mlp["fc2"](F.gelu(z), x.shape[-1])  # exact (erf)
+        return x + self.mlp["fc2"](F.gelu(z, approximate=self.gelu),
+                                   x.shape[-1])
 
 
 @BACKBONES.register_module(name=["ElasticTransformer", "ElasticTransformer1"])
@@ -141,12 +277,10 @@ class ElasticTransformer(nn.Module):
                  with_rel_pos: bool = False, rel_max_dist: int = 14,
                  drop_rate: float = 0.0):
         super().__init__()
-        waiting = {"with_rel_pos": with_rel_pos, "drop_rate": drop_rate > 0}
-        if any(waiting.values()):
-            raise NotImplementedError(
-                f"ElasticTransformer options "
-                f"{[k for k, v in waiting.items() if v]} wait for a later "
-                "slice of the port")
+        self.with_rel_pos = bool(with_rel_pos)
+        self.rel_max_dist = int(rel_max_dist)
+        self.drop_rate = float(drop_rate)
+        self._rel_index = {}     # (grid, device) -> the groups on the device
         self.embed_dim = int(embed_dim)
         self.depth = int(depth)
         self.num_heads = int(num_heads)
@@ -168,7 +302,9 @@ class ElasticTransformer(nn.Module):
             nn.init.trunc_normal_(self.cls_token, std=0.02)
         self.blocks = nn.ModuleList([
             ElasticEncoderLayer(self.embed_dim, self.num_heads, self.max_ffn,
-                                use_flash) for _ in range(self.depth)])
+                                use_flash, self.with_rel_pos,
+                                self.rel_max_dist)
+            for _ in range(self.depth)])
 
     @staticmethod
     def max_arch_of(cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -194,8 +330,22 @@ class ElasticTransformer(nn.Module):
             raise ValueError(f"arch (width {emb}, depth {depth}, heads "
                              f"{heads}, ffn {ffns}) is outside the MAX net")
 
-    def forward(self, x: torch.Tensor,
-                arch: Dict[str, Any]) -> List[torch.Tensor]:
+    def _relative_index(self, gh: int, gw: int, device: torch.device):
+        """The layers' ``rel_index`` for a ``gh x gw`` grid, uploaded once
+        a device (an upload a forward would wait on the card's queue)."""
+        key = (gh, gw, str(device))
+        if key not in self._rel_index:
+            groups = relative_groups(gh, gw, self.rel_max_dist,
+                                     self.with_cls_token)
+            self._rel_index[key] = tuple(
+                torch.from_numpy(g).to(device) for g in groups) + (
+                gh, gw, self.with_cls_token)
+        return self._rel_index[key]
+
+    def forward(self, x: torch.Tensor, arch: Dict[str, Any],
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        """``generator`` draws ``pos_drop`` in training."""
         emb = int(arch["embedding"]["width"])
         enc = arch["encoder"]
         depth = int(enc["depth"])
@@ -212,6 +362,10 @@ class ElasticTransformer(nn.Module):
         if self.with_cls_token:
             cls = (self.cls_token + cls_pos)[..., :emb]
             x = torch.cat([cls.expand(b, -1, -1).to(x.dtype), x], dim=1)
+        if self.training and self.drop_rate > 0:
+            x = dropout(x, self.drop_rate, generator)
+        rel_index = self._relative_index(gh, gw, x.device) \
+            if self.with_rel_pos else None
 
         def as_map(t: torch.Tensor) -> torch.Tensor:
             t = t[:, 1:] if self.with_cls_token else t
@@ -220,7 +374,7 @@ class ElasticTransformer(nn.Module):
         outs = []
         for i in range(self.depth):
             if i < depth:   # a layer past the active depth passes x on
-                x = self.blocks[i](x, heads[i], ffns[i])
+                x = self.blocks[i](x, heads[i], ffns[i], rel_index)
             if i in self.out_indices:
                 outs.append(as_map(x))
         if not outs:

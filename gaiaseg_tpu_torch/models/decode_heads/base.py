@@ -16,24 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.dropout import dropout
 from ...ops.dynamic_layers import DynConv2d
 from ...ops.resize import resize_bilinear
-from ...parallel.distributed import data_parallel
-
-
-def dropout(x: torch.Tensor, p: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Elementwise dropout drawn from an explicit generator (the JAX head's
-    ``nn.Dropout``); ``F.dropout`` takes no generator. Across W ranks each
-    rank draws the global batch's mask from the shared generator and keeps
-    its own rows, so a sample's mask is the one-process run's."""
-    keep = 1.0 - p
-    rank, world = data_parallel()
-    n = x.shape[0]
-    full = torch.empty_like(x) if world == 1 \
-        else x.new_empty((n * world,) + x.shape[1:])
-    mask = full.bernoulli_(keep, generator=generator)[rank * n:(rank + 1) * n]
-    return x * mask / keep
 
 
 class BaseDecodeHead(nn.Module):

@@ -52,13 +52,14 @@ def softmax_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
                           reduction: str = "mean",
                           pixel_weight: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """Softmax CE in float32, each pixel weighted by its validity, its
-    label's ``class_weight`` and its ``pixel_weight``. ``mean`` with
-    ``avg_non_ignore`` divides by the sum of those weights, else by the
-    pixel count."""
+    """Softmax CE in float32 (float64 for float64 logits), each pixel
+    weighted by its validity, its label's ``class_weight`` and its
+    ``pixel_weight``. ``mean`` with ``avg_non_ignore`` divides by the sum of
+    those weights, else by the pixel count."""
     valid = label != ignore_index
     safe = torch.where(valid, label, 0).long()
-    logp = torch.log_softmax(logits.float(), dim=1)
+    logp = torch.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=1)
     nll = -logp.gather(1, safe[:, None]).squeeze(1)
     w = valid.float()
     if class_weight is not None:

@@ -109,7 +109,7 @@ class DynamicDistiller(DynamicEncoderDecoder):
         ``decode.acc_seg`` (the decode loss then unfused). ``generator``
         draws the heads' dropout and the pairwise window; without one the
         whole maps are compared."""
-        feats = self.extract_feat(img, arch)
+        feats = self.extract_feat(img, arch, generator)
         # JAX's distiller logs the decode head's accuracy only; its aux
         # losses stay fused
         dec, losses = self._head_losses(feats, gt, generator, compute_acc,

@@ -71,8 +71,11 @@ class DynamicEncoderDecoder(nn.Module):
         return [self.auxiliary_head]
 
     # ------------------------------------------------------------------ #
-    def extract_feat(self, img: torch.Tensor, arch: Dict[str, Any]):
-        feats = self.backbone(img, arch["backbone"])
+    def extract_feat(self, img: torch.Tensor, arch: Dict[str, Any],
+                     generator: Optional[torch.Generator] = None):
+        """The backbone's (or neck's) features; ``generator`` draws the
+        backbone's stochastic depth and token dropout in training."""
+        feats = self.backbone(img, arch["backbone"], generator)
         return self.neck(feats) if self.neck is not None else feats
 
     def encode_decode(self, img: torch.Tensor,
@@ -91,11 +94,12 @@ class DynamicEncoderDecoder(nn.Module):
                       compute_acc: bool = False
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total loss, {name: loss}). ``gt`` is ``[N,H,W]`` with 255
-        ignore; ``generator`` draws the heads' dropout. ``compute_acc``
+        ignore; ``generator`` draws the heads' dropout and the backbone's
+        stochastic depth and token dropout. ``compute_acc``
         (JAX ``encoder_decoder.py:114-151``): every head's logits are
         resized to label size, its loss taken unfused and its
         ``{head}.acc_seg`` logged; the total sums the losses only."""
-        feats = self.extract_feat(img, arch)
+        feats = self.extract_feat(img, arch, generator)
         _, losses = self._head_losses(feats, gt, generator, compute_acc)
         return sum(v for k, v in losses.items() if "loss" in k), losses
 

@@ -1,4 +1,5 @@
-"""Sliced dynamic layers: DynConv2d, DynBatchNorm, DynLinear, DynLayerNorm.
+"""Sliced dynamic layers: DynConv2d, DynBatchNorm, DynLinear, DynLayerNorm
+(and its NCHW form DynChannelLayerNorm).
 
 Port of ``gaiaseg_tpu/ops/dynamic_layers.py``. The JAX package keeps every
 parameter at MAX shape and MASKS inactive channels, so one XLA program
@@ -346,3 +347,13 @@ class DynLayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
         return F.layer_norm(x, (c,), self.weight[:c], self.bias[:c], self.eps)
+
+
+class DynChannelLayerNorm(DynLayerNorm):
+    """``DynLayerNorm`` over dim 1 of an NCHW map: the JAX module over the
+    channels of its NHWC map (ConvNeXt's stem, downsample and output
+    norms). At full width it is the plain channels-first LayerNorm (BEiT's
+    ``fpn1.1``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
