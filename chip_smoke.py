@@ -195,10 +195,29 @@ Phases, each printing its own lines; any failure exits non-zero:
             K3-K5 never: the flash gate stays closed, as JAX's), warm and
             least step times, a profiled MAX step, peak memory, the float32
             card-vs-CPU MAX step.
+20. segformer  the SegFormer supernet (``configs/_dynamic_/models/
+            segformer_elastic_mixvit.py`` as it stands: ElasticMixViT with
+            MiT-B2's encoder shapes, widths 64/128/320/512, depths 3/4/6/3,
+            heads 2/4/10/16 of dim 32, SR 8/4/2/1, FFN 4.0, + SegFormerHead
+            256, 19 classes, AdamW + clip 1.0) with the data of
+            ``configs/_dynamic_/datasets/cityscapes_1024x1024.py`` (crop
+            512x1024) on synthetic 1024x2048 records kept on the card, batch
+            8: the config's sandwich cycle (MAX, MIN, 2 random) with K1/K2
+            once an iteration (one head) and K3-K5 never, warm and least
+            step times, a profiled MAX step (which runs ``fwd_tile`` and
+            ``bwd_tile``), peak memory, the float32 card-vs-CPU MAX step;
+            slide eval at MAX and MIN on one 1024x2048 record (windows
+            1024x1024 at stride 768: 3), seconds an image in bf16 and the
+            float32 mIoU within 1e-5 of the CPU's on the same weights; the
+            new losses (Dice, sigmoid and softmax focal, Mixed CE + Dice,
+            EQL at sample_ratio 0) at [8, 19, 512, 1024] on the card
+            against the CPU (values within 1e-5 relative, gradients within
+            1e-4 of their max); one MIN step with a MixedLoss(CE, Dice)
+            decode loss: finite, K1/K2 never (the unfused loss).
 
 The train phases (``train``, ``data``, ``deeplab``, ``distill``,
-``vit_train``, ``convnext``, ``conformer``, ``vit_relpos``) run at log
-interval 1: every step is a full step (BN
+``vit_train``, ``convnext``, ``conformer``, ``vit_relpos``, ``segformer``)
+run at log interval 1: every step is a full step (BN
 statistics updated) and synchronized, so its time is the step's.
 
 It then prints the ``kernels`` JSON line, the nvidia-smi line and, last,
@@ -226,7 +245,7 @@ VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
 PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
           "eval", "loop", "subnets", "deeplab", "distill", "ddp",
           "flash_kernels", "vit_segmentor", "vit_train", "vit_eval",
-          "convnext", "conformer", "vit_relpos")
+          "convnext", "conformer", "vit_relpos", "segformer")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
 REPO_KERNELS = ("fwd_tile", "fwd_tile_any", "bwd_tile", "bwd_tile_any",
@@ -1067,6 +1086,20 @@ def phase_data(ctx):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _train_shaped_batch(cfg, n):
+    """The first ``n`` records of the config's train data on the card,
+    normalized, cut to the train pipeline's crop (the step's shape; a
+    record as large as the crop is whole)."""
+    from gaiaseg_tpu_torch.data import build_dataset, parse_train_pipeline
+    from gaiaseg_tpu_torch.engine import prepare_batch
+    ds = build_dataset(cfg["data"]["train"])
+    img, gt = prepare_batch([ds[i] for i in range(n)], cfg["img_norm_cfg"],
+                            "cuda")
+    ch, cw = parse_train_pipeline(cfg["data"]["train"].get("pipeline")) \
+        .crop_size
+    return img[..., :ch, :cw].contiguous(), gt[..., :ch, :cw].contiguous()
+
+
 def _profile_max_step(model, cfg, warm, tag, ranges=()):
     """Where one warm MAX-arch train step spends the card's time: device
     time by kernel from torch.profiler, and the idle share of the step's
@@ -1077,13 +1110,10 @@ def _profile_max_step(model, cfg, warm, tag, ranges=()):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from gaiaseg_tpu_torch.data import build_dataset
     from gaiaseg_tpu_torch.engine import (build_optimizer, grad_clip_norm,
-                                          prepare_batch, train_step)
+                                          train_step)
     from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
-    ds = build_dataset(cfg["data"]["train"])
-    img, gt = prepare_batch([ds[i] for i in range(8)], cfg["img_norm_cfg"],
-                            "cuda")
+    img, gt = _train_shaped_batch(cfg, 8)
     arch = encode_arch(model_max_arch(cfg["model"]))
     opt = build_optimizer(model.parameters(), dict(cfg["optimizer"], lr=0.0))
     max_norm = grad_clip_norm(cfg.get("optimizer_config"))
@@ -3148,6 +3178,7 @@ def _f32_card_vs_cpu(cfg, tag):
     torch.manual_seed(0)
     model = build_segmentor(mcfg)
     state = {k: v.detach() for k, v in model.state_dict().items()}
+    heads = 1 + len(model.aux_heads())     # K1/K2 launch once a head
     ds = SyntheticDataset(length=F32_CHECK_IMAGES, size=(512, 512),
                           num_classes=model.num_classes, seed=5, cells=8)
     del model
@@ -3203,8 +3234,8 @@ def _f32_card_vs_cpu(cfg, tag):
               f"max|d|/max|ref| {e['worst_grad_rel']:.1e} "
               f"({e['worst_tensor']}), median {e['median_grad_rel']:.1e}")
         check(set(res[r][1]) == set(cpu[1]) == set(ref)
-              and launches["resize_ce_fwd"] == launches["resize_ce_bwd"] == 2
-              and e["loss_rel"] <= F32_LOSS_RTOL,
+              and launches["resize_ce_fwd"] == launches["resize_ce_bwd"]
+              == heads and e["loss_rel"] <= F32_LOSS_RTOL,
               f"{tag}: card ({r}) vs CPU float32 step {e}, launches "
               f"{launches}")
     print(f"[{tag}] worst gradient distance from the card's float64 step: "
@@ -3219,10 +3250,11 @@ def _f32_card_vs_cpu(cfg, tag):
 
 def _train_backbone_path(ctx, tag, cfg, names, describe):
     """One sandwich cycle of ``cfg`` through ``train_segmentor`` on the
-    card (K1/K2 twice an iteration on the instance of the config's class
-    count, K3-K5 never), the cycle again warm, the least step times over
-    STEADY_CYCLES warm cycles, a profiled MAX step, peak memory, then the
-    float32 card-vs-CPU MAX step. Records the phase in ``ctx[tag]``."""
+    card (K1/K2 once an iteration for each head with a loss, on the
+    instance of the config's class count, K3-K5 never), the cycle again
+    warm, the least step times over STEADY_CYCLES warm cycles, a profiled
+    MAX step, peak memory, then the float32 card-vs-CPU MAX step. Records
+    the phase in ``ctx[tag]``."""
     import torch
     from gaiaseg_tpu_torch.engine import train_segmentor
     from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
@@ -3242,10 +3274,11 @@ def _train_backbone_path(ctx, tag, cfg, names, describe):
     check(got == names, f"{tag}: arch sequence {got}, want {names}")
     check(all(math.isfinite(r["loss"]) for r in history),
           f"{tag}: non-finite loss in {[r['loss'] for r in history]}")
+    heads = 1 + len(model.aux_heads())
     for k in ("resize_ce_fwd", "resize_ce_bwd"):
-        check(launches[k] == 2 * iters,
+        check(launches[k] == heads * iters,
               f"{tag}: {k} launched {launches[k]} times in {iters} "
-              "iterations (want 2 per iteration)")
+              f"iterations (want {heads} per iteration, one a head)")
     check(not any(launches[k] for k in FLASH_KERNELS),
           f"{tag}: flash kernels launched {launches}")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -3304,6 +3337,195 @@ def phase_vit_relpos(ctx):
         "neck + UPer 512 + FCN aux 256, 19 classes, AdamW + clip 1.0")
 
 
+# the segformer phase: configs/_dynamic_/models/segformer_elastic_mixvit.py
+# (MiT-B2's encoder shapes + SegFormerHead 256, 19 classes) composed with
+# configs/_dynamic_/datasets/cityscapes_1024x1024.py (crop 512x1024),
+# batch 8 of synthetic 1024x2048 records kept on the card
+SEGFORMER = os.path.join(REPO, "configs", "_dynamic_", "models",
+                         "segformer_elastic_mixvit.py")
+CITYSCAPES_1024 = os.path.join(REPO, "configs", "_dynamic_", "datasets",
+                               "cityscapes_1024x1024.py")
+SEGFORMER_SLIDE_SIZE = (1024, 2048)     # windows 1024x1024 at stride 768: 3
+SEGFORMER_MIOU_ATOL = 1e-5              # float32 slide mIoU, card vs CPU
+# the new losses at the decode logits' label-size shape [N, C, H, W], card
+# vs CPU in float32: the same sums in another order
+NEW_LOSS_SHAPE = (8, 19, 512, 1024)
+NEW_LOSS_RTOL = 1e-5
+NEW_LOSS_GRAD_RTOL = 1e-4
+
+
+def _segformer_cfg():
+    """The SegFormer model config as it stands (its sampler MAX, MIN and
+    two draws of ``width_range`` x ``depth_range``; AdamW 6e-5, wd 0.01,
+    clip 1.0; poly LR with linear warmup; slide test_cfg 1024x1024 at
+    stride 768) with the Cityscapes 1024x1024 dataset config's train
+    pipeline (Resize to 2048x1024 at ratio 0.5-2.0, RandomCrop 512x1024,
+    flip, photometric distortion) on synthetic 1024x2048 records kept on
+    the card, batch 8, every step a full one."""
+    from gaiaseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(SEGFORMER)
+    city = Config.fromfile(CITYSCAPES_1024)
+    cfg.merge_from_dict({
+        "data.train": {"type": "SyntheticDataset",
+                       "size": list(SEGFORMER_SLIDE_SIZE), "length": 16,
+                       "num_classes": 19, "seed": 0, "cells": 8,
+                       "pipeline": city["train_pipeline"],
+                       "device_cache": True},
+        "data.samples_per_gpu": 8,
+        "img_norm_cfg": city["img_norm_cfg"],
+        "log_config.interval": 1})
+    return cfg
+
+
+def _new_loss_cfgs():
+    ce = {"type": "CrossEntropyLoss"}
+    dice = {"type": "DiceLoss"}
+    return {"dice": dice,
+            "sigmoid_focal": {"type": "FocalLoss", "use_sigmoid": True},
+            "softmax_focal": {"type": "FocalLoss", "use_sigmoid": False},
+            "mixed_ce_dice": {"type": "MixedLoss", "losses": [ce, dice],
+                              "weights": [1.0, 0.5]},
+            "eql_ratio0": {"type": "EQLCrossEntropyLoss",
+                           "tail_classes": list(range(10, 19)),
+                           "sample_ratio": 0.0}}
+
+
+def _new_losses_card_vs_cpu(tag):
+    """Each new loss at the decode logits' label-size shape, float32, on
+    the card against the CPU: values within NEW_LOSS_RTOL relative, the
+    logits' gradients within NEW_LOSS_GRAD_RTOL of their max."""
+    import torch
+    from gaiaseg_tpu_torch.models import build_loss
+    g = torch.Generator().manual_seed(7)
+    logits = 3 * torch.randn(NEW_LOSS_SHAPE, generator=g)
+    n, c, h, w = NEW_LOSS_SHAPE
+    label = torch.randint(0, c, (n, h, w), generator=g, dtype=torch.int32)
+    label[torch.rand((n, h, w), generator=g) < 0.1] = 255
+    out = {}
+    for name, lcfg in _new_loss_cfgs().items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            x = logits.to(device, copy=True).requires_grad_(True)
+            fn = build_loss(lcfg)
+            t0 = time.perf_counter()
+            loss = fn(x, label.to(device))
+            loss.backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            res[device] = (float(loss.detach()), x.grad.cpu(),
+                           (time.perf_counter() - t0) * 1e3)
+        (lc, gc, ms), (lp, gp, cpu_ms) = res["cuda"], res["cpu"]
+        rel = abs(lc - lp) / max(abs(lp), 1e-30)
+        grel = float((gc - gp).abs().max()) / max(float(gp.abs().max()),
+                                                  1e-30)
+        out[name] = {"loss": lc, "cpu_loss": lp, "loss_rel": rel,
+                     "grad_rel": grel, "card_ms": ms, "cpu_ms": cpu_ms}
+        print(f"[{tag}] {name} at {list(NEW_LOSS_SHAPE)}: card {lc:.7f} vs "
+              f"CPU {lp:.7f} (rel {rel:.1e}), gradient max|d|/max|ref| "
+              f"{grel:.1e}; {ms:.1f} ms on the card (first call)")
+        check(math.isfinite(lc) and rel <= NEW_LOSS_RTOL
+              and grel <= NEW_LOSS_GRAD_RTOL,
+              f"{tag}: {name} card vs CPU {out[name]}")
+    return out
+
+
+def phase_segformer(ctx):
+    """The SegFormer supernet at full width: a sandwich cycle through
+    ``train_segmentor`` (K1/K2 once an iteration, K3-K5 never), warm and
+    least step times, a profiled MAX step, peak memory, the float32
+    card-vs-CPU MAX step; slide eval at MAX and MIN on one 1024x2048
+    record (3 windows) with the float32 mIoU equal to the CPU's; the new
+    losses on the card against the CPU, and one MIN step with a
+    MixedLoss(CE, Dice) decode loss, which takes the unfused loss."""
+    import torch
+    from gaiaseg_tpu_torch.archspace import build_model_sampler
+    from gaiaseg_tpu_torch.data import SyntheticDataset
+    from gaiaseg_tpu_torch.engine import (build_optimizer, evaluate,
+                                          grad_clip_norm, train_step)
+    from gaiaseg_tpu_torch.models import (build_segmentor, encode_arch,
+                                          model_max_arch)
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    cfg = _segformer_cfg()
+    _train_backbone_path(
+        ctx, "segformer", cfg, ["MAX", "MIN", "random", "random"],
+        "SegFormer supernet (ElasticMixViT widths 64/128/320/512, depths "
+        "3/4/6/3, heads 2/4/10/16 of 32, SR 8/4/2/1, FFN 4.0) + "
+        "SegFormerHead 256, 19 classes, AdamW 6e-5 + clip 1.0, batch 8 of "
+        "512x1024")
+    out = ctx["segformer"]
+
+    # slide eval at MAX and MIN: the card (bf16, timed), then float32 on
+    # the card and on the CPU with the same weights and record
+    model = _build_model(cfg).eval()
+    anchors = {m["name"]: m for m in build_model_sampler(
+        cfg["val_sampler"]).traverse()}
+    ds = SyntheticDataset(length=1, size=SEGFORMER_SLIDE_SIZE,
+                          num_classes=19, seed=1, cells=8)
+    test_params = _test_params(cfg)
+    cpu_model = build_segmentor(cfg["model"]).eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    h, w = SEGFORMER_SLIDE_SIZE
+    windows = len(_windows(h, w, cfg["model"]["test_cfg"]["crop_size"],
+                           cfg["model"]["test_cfg"]["stride"]))
+    slide = out["slide"] = {}
+    for name in ("MAX", "MIN"):
+        arch = encode_arch(model_max_arch(cfg["model"]), anchors[name])
+        evaluate(model, ds, arch, test_params=test_params, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf16 = evaluate(model, ds, arch, test_params=test_params,
+                        device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        f32 = _float32_slide_eval(model, ds, arch, test_params,
+                                  torch.device("cuda"))
+        t0 = time.perf_counter()
+        cpu = _float32_slide_eval(cpu_model, ds, arch, test_params,
+                                  torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        d = abs(f32["mIoU"] - cpu["mIoU"])
+        differ = int((f32["confusion"] != cpu["confusion"]).sum())
+        slide[name] = {"s_per_image": secs, "windows": windows,
+                       "mIoU_bf16": bf16["mIoU"], "mIoU_f32_cuda": f32["mIoU"],
+                       "mIoU_f32_cpu": cpu["mIoU"], "abs_diff": d,
+                       "confusion_cells_differ": differ, "cpu_s": cpu_s}
+        print(f"[segformer] slide eval {name} (windows 1024x1024 at stride "
+              f"768: {windows} on a {h}x{w} record): {secs:.3f} s an image "
+              f"(bf16), mIoU {bf16['mIoU']:.4f}; float32 mIoU card "
+              f"{f32['mIoU']:.7f} vs CPU {cpu['mIoU']:.7f} (|d| {d:.1e}, "
+              f"{differ} confusion cells differ; CPU {cpu_s:.1f}s)")
+        check(windows == 3 and all(math.isfinite(r["mIoU"])
+                                   for r in (bf16, f32, cpu))
+              and d <= SEGFORMER_MIOU_ATOL,
+              f"segformer: slide {name} {slide[name]}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # the new losses, then a MIN step whose decode loss is MixedLoss(CE,
+    # Dice): the unfused route, K1/K2 never
+    out["losses"] = _new_losses_card_vs_cpu("segformer")
+    mcfg = dict(cfg["model"], decode_head=dict(
+        cfg["model"]["decode_head"],
+        loss_decode=_new_loss_cfgs()["mixed_ce_dice"]))
+    torch.manual_seed(0)
+    model = build_segmentor(mcfg).cuda().train()
+    img, gt = _train_shaped_batch(cfg, 2)
+    opt = build_optimizer(model.parameters(), cfg["optimizer"])
+    reset_launches()
+    logs = train_step(model, opt, img, gt,
+                      encode_arch(model_max_arch(mcfg), anchors["MIN"]),
+                      max_norm=grad_clip_norm(cfg.get("optimizer_config")))
+    loss, launches = float(logs["loss"]), dict(LAUNCHES)
+    out["mixed_step"] = {"loss": loss, "launches": launches}
+    print(f"[segformer] MIN step with MixedLoss(CE, Dice) on 2 crops: "
+          f"loss {loss:.4f}, launches {launches}")
+    check(math.isfinite(loss) and not any(launches.values()),
+          f"segformer: MixedLoss step loss {loss}, launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- #
 REPLACES = {
     "resize_ce_fwd": "gaiaseg_tpu/ops/pallas/resize_ce.py:109 (_fwd_kernel "
@@ -3322,10 +3544,12 @@ REPLACES = {
 def _path_launches(ctx, k):
     """K1/K2 launches over the main paths that ran: the flagship train
     cycle, the distill phase's BEiT-teacher cycle and the ConvNeXt,
-    Conformer and relative-position ViT cycles, each counted from 0."""
+    Conformer, relative-position ViT and SegFormer cycles, each counted
+    from 0."""
     runs = [c[k] for c in [ctx.get("launches")] + [
         (ctx.get(tag) or {}).get("launches")
-        for tag in ("distill", "convnext", "conformer", "vit_relpos")] if c]
+        for tag in ("distill", "convnext", "conformer", "vit_relpos",
+                    "segformer")] if c]
     return sum(runs) if runs else None
 
 
@@ -3396,7 +3620,7 @@ def main(argv) -> int:
         return 1
     for path in (FLAGSHIP, VIT, ADE20K, FLOPS_CFG, RULES_CFG, FT_CFG,
                  *EXTRACT_CFGS, DEEPLAB, V1C, V1C_EXTRACT, DISTILL_BEIT,
-                 DISTILL_SELF, TINY_CONVNEXT):
+                 DISTILL_SELF, TINY_CONVNEXT, SEGFORMER, CITYSCAPES_1024):
         if not os.path.isfile(path):
             print(f"chip_smoke: config missing: {path}", file=sys.stderr)
             return 1
@@ -3440,6 +3664,7 @@ def main(argv) -> int:
                    "convnext": ctx.get("convnext"),
                    "conformer": ctx.get("conformer"),
                    "vit_relpos": ctx.get("vit_relpos"),
+                   "segformer": ctx.get("segformer"),
                    "data": ctx.get("data"),
                    "kernels": line["kernels"]}, f, indent=2, default=str)
     print(json.dumps(line))

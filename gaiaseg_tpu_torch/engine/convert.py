@@ -9,12 +9,14 @@ ViT's separate ``w_q/w_k/w_v`` become one fused ``qkv``. Names follow the
 reference mmseg / timm layout the port's modules use, so the JAX package's
 own ``segmentor_state_dict_to_variables`` (``engine/torch_convert.py:294``)
 and ``vit_state_dict_to_params`` (``:489``) map the result back. Covers the
-DynamicResNet (unrolled blocks; the plain or deep stem, ``stem0-2`` ->
-mmseg's ``stem.{0,1,3,4,6,7}``; avg_down's ``downsample.{1,2}``),
+DynamicResNet (unrolled blocks, or ``scan_blocks``' stacked tail blocks
+unstacked; the plain or deep stem, ``stem0-2`` -> mmseg's
+``stem.{0,1,3,4,6,7}``; avg_down's ``downsample.{1,2}``),
 ElasticTransformer (its relative-position tables too), DynamicConvNeXt
-(the upstream ConvNeXt layout) and ElasticConvformer backbones, the
-multi-level neck and the PSP/UPer/FCN
-(with ``conv_cat``)/ASPP/DeepLabV3+ heads, and a distiller's teacher
+(the upstream ConvNeXt layout), ElasticConvformer and ElasticMixViT
+(JAX's names; no upstream SegFormer layout is read) backbones, the
+multi-level neck and the PSP/UPer/FCN (with ``conv_cat``)/ASPP/
+DeepLabV3+/SegFormer heads, and a distiller's teacher
 (``t_backbone``, a BEiT or a DynamicResNet, ``t_neck``, ``t_decode_head``)
 into its ``t_*`` keys: BEiT in the official layout, its k bias dropped (a
 bias added to every key of a row moves no softmax) and its FPN deconv
@@ -67,6 +69,26 @@ def _put(sd, prefix, entries):
     sd.update({f"{prefix}.{k}": v for k, v in entries.items()})
 
 
+def _unstack_blocks(layer: Dict[str, Any]) -> Dict[str, Any]:
+    """A ``scan_blocks`` stage (``block0`` + ``blocks.b``, every leaf of the
+    tail blocks stacked on a leading depth axis) -> the unrolled layout
+    ``block0 .. block{n}``; an unrolled stage as it is."""
+    if "blocks" not in layer:
+        return layer
+    stacked = layer["blocks"]["b"]
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+
+    def take(tree, i):
+        return {k: take(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+                for k, v in tree.items()}
+    out = {k: v for k, v in layer.items() if k != "blocks"}
+    out.update({f"block{i + 1}": take(stacked, i)
+                for i in range(np.shape(leaf)[0])})
+    return out
+
+
 def backbone_state_dict(p: Dict[str, Any], s: Dict[str, Any],
                         prefix: str = "backbone", avg_down: bool = False
                         ) -> Dict[str, torch.Tensor]:
@@ -85,10 +107,8 @@ def backbone_state_dict(p: Dict[str, Any], s: Dict[str, Any],
     ds = (1, 2) if avg_down else (0, 1)
     stage = 1
     while f"layer{stage}" in p:
-        lp, ls = p[f"layer{stage}"], s[f"layer{stage}"]
-        if "blocks" in lp:
-            raise NotImplementedError("scan_blocks (stacked) backbones wait "
-                                      "for a later slice")
+        lp, ls = _unstack_blocks(p[f"layer{stage}"]), \
+            _unstack_blocks(s[f"layer{stage}"])
         b = 0
         while f"block{b}" in lp:
             bp, bs = lp[f"block{b}"], ls[f"block{b}"]
@@ -156,13 +176,22 @@ def vit_state_dict(p: Dict[str, Any], prefix: str = "backbone",
     return sd
 
 
+def mixvit_state_dict(p: Dict[str, Any], prefix: str = "backbone"
+                      ) -> Dict[str, torch.Tensor]:
+    """``backbone_m`` params of an ElasticMixViT -> state_dict: JAX's
+    names in PyTorch form (``patch{i}``, ``stage{i}_block{j}.attn.q`` ...,
+    ``out_norm{i}``; the depthwise ``dwconv`` ``[3, 3, 1, C]`` ->
+    ``[C, 1, 3, 3]``)."""
+    return _tree_state(p, {}, prefix, lambda name: name)
+
+
 def _tree_state(p: Dict[str, Any], s: Dict[str, Any], prefix: str,
                 rename) -> Dict[str, torch.Tensor]:
     """A JAX module tree -> state_dict entries by the kind of each leaf
     module: a 4-D ``kernel`` a conv (HWIO -> OIHW, a depthwise ``[k, k, 1,
     C]`` -> ``[C, 1, k, k]``), a 2-D one a linear; a ``scale`` a BN when
-    it has ``batch_stats``, else a LayerNorm; a transformer layer (an
-    ``attn`` beside ``norm1``) by ``encoder_layer_state``; a bare array
+    it has ``batch_stats``, else a LayerNorm; a ViT layer (an ``attn``
+    with ``w_q`` beside ``norm1``) by ``encoder_layer_state``; a bare array
     (``gamma``, ``cls_token``) as it is. ``rename`` maps a JAX name to the
     port's."""
     sd: Dict[str, torch.Tensor] = {}
@@ -176,7 +205,7 @@ def _tree_state(p: Dict[str, Any], s: Dict[str, Any], prefix: str,
                  else linear_state(sub))
         elif "scale" in sub:
             _put(sd, key, bn_state(sub, stats) if stats else ln_state(sub))
-        elif "attn" in sub and "norm1" in sub:
+        elif "attn" in sub and "norm1" in sub and "w_q" in sub["attn"]:
             sd.update(encoder_layer_state(sub, key))
         else:
             sd.update(_tree_state(sub, stats, key, rename))
@@ -279,7 +308,8 @@ def neck_state_dict(p: Dict[str, Any], prefix: str = "neck"
 
 _HEAD_MODULES = {"bottleneck": "bottleneck", "psp_bottleneck": "bottleneck",
                  "fpn_bottleneck": "fpn_bottleneck", "conv_cat": "conv_cat",
-                 "image_pool": "image_pool.1", "c1_proj": "c1_bottleneck"}
+                 "image_pool": "image_pool.1", "c1_proj": "c1_bottleneck",
+                 "fuse": "fuse"}
 _SEP_MODULES = {"fuse1": "sep_bottleneck.0", "fuse2": "sep_bottleneck.1"}
 _HEAD_LISTS = {"conv": "convs", "lateral": "lateral_convs",
                "fpn_conv": "fpn_convs"}
@@ -304,6 +334,8 @@ def _head_state_dict(prefix, p, s, cfg) -> Dict[str, torch.Tensor]:
         listed = re.fullmatch(r"(conv|lateral|fpn_conv)(\d+)", name)
         if name == "conv_seg":
             _put(sd, f"{prefix}.conv_seg", conv_state(p[name]))
+        elif re.fullmatch(r"mlp\d+", name):         # SegFormer's linears
+            _put(sd, f"{prefix}.{name}", linear_state(p[name]))
         elif name in _HEAD_MODULES:
             module(_HEAD_MODULES[name], p[name], s[name])
         elif name == "psp_modules":
@@ -336,6 +368,8 @@ def variables_to_state_dict(variables_np: Dict[str, Any],
     bb_type = model_cfg["backbone"].get("type")
     if bb_type == "DynamicConvNeXt":
         sd = convnext_state_dict(params["backbone_m"])
+    elif bb_type in ("ElasticMixViT", "ElasticSegFormer"):
+        sd = mixvit_state_dict(params["backbone_m"])
     elif bb_type == "ElasticConvformer":
         sd = convformer_state_dict(params["backbone_m"],
                                    stats.get("backbone_m", {}))

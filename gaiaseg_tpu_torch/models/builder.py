@@ -20,7 +20,7 @@ logger = logging.getLogger("gaiaseg_tpu_torch")
 _IGNORED_KEYS = {
     "conv_cfg", "norm_cfg", "act_cfg", "style", "pretrained", "init_cfg",
     "with_cp", "contract_first_dilation", "zero_init_residual", "num_stages",
-    "base_channels", "loss_decode", "sampler",
+    "base_channels", "loss_decode", "sampler", "scan_blocks",
 }
 
 

@@ -23,6 +23,15 @@ from ..losses.cross_entropy import CrossEntropyLoss
 from ..losses.dice_focal import pixel_accuracy
 
 
+def _call_loss(loss_fn, logits: torch.Tensor, gt: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``loss_fn(logits, gt)``, with the step's ``generator`` for a loss
+    that draws (``takes_generator``)."""
+    if getattr(loss_fn, "takes_generator", False):
+        return loss_fn(logits, gt, generator=generator)
+    return loss_fn(logits, gt)
+
+
 @SEGMENTORS.register_module(name=["DynamicEncoderDecoder", "EncoderDecoder"])
 class DynamicEncoderDecoder(nn.Module):
     """``fused_loss``: None (default) routes plain-CE losses through
@@ -125,15 +134,20 @@ class DynamicEncoderDecoder(nn.Module):
             dec = logit if dec is None else dec
             if compute_acc and (acc_heads is None or name in acc_heads):
                 up = resize_bilinear(logit, label_hw, self.align_corners)
-                losses[f"{name}.loss_seg"] = loss_fn(up, gt)
+                losses[f"{name}.loss_seg"] = _call_loss(loss_fn, up, gt,
+                                                        generator)
                 losses[f"{name}.acc_seg"] = pixel_accuracy(up, gt)
             else:
                 losses[f"{name}.loss_seg"] = self._seg_loss(
-                    logit, gt, label_hw, loss_fn)
+                    logit, gt, label_hw, loss_fn, generator)
         return dec, losses
 
     def _seg_loss(self, logit: torch.Tensor, gt: torch.Tensor, label_hw,
-                  loss_fn) -> torch.Tensor:
+                  loss_fn, generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+        """``loss_fn`` of the logits resized to label size: a plain CE
+        through ``fused_resize_ce`` when its gate passes, any other loss
+        unfused. A loss that draws (EQL) gets ``generator``."""
         plain_ce = (isinstance(loss_fn, CrossEntropyLoss)
                     and not loss_fn.use_sigmoid
                     and loss_fn.class_weight is None
@@ -145,7 +159,7 @@ class DynamicEncoderDecoder(nn.Module):
             return loss_fn.loss_weight * fused_resize_ce(logit, gt, label_hw,
                                                          255)
         up = resize_bilinear(logit, label_hw, self.align_corners)
-        return loss_fn(up, gt)
+        return _call_loss(loss_fn, up, gt, generator)
 
     # ------------------------------------------------------------------ #
     def _check_eval(self) -> None:

@@ -1,8 +1,9 @@
 """Dropout and stochastic depth drawn from an explicit generator.
 
-``F.dropout`` takes no generator, so a run could not replay its draws; both
-functions here draw from the caller's ``torch.Generator`` (the train step's,
-on the step's device). Across W ranks each rank draws the masks of the
+``F.dropout`` takes no generator, so a run could not replay its draws; the
+functions here draw their masks (``global_bernoulli``, which EQL's loss
+uses too) from the caller's ``torch.Generator`` (the train step's, on the
+step's device). Across W ranks each rank draws the masks of the
 global batch from the shared generator and keeps its own rows, so a
 sample's mask is the one a single process at the global batch draws.
 """
@@ -15,14 +16,19 @@ import torch
 from ..parallel.distributed import data_parallel
 
 
-def _global_bernoulli(x: torch.Tensor, shape, keep: float,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
-    """A 0/1 mask of ``shape`` (its first axis this rank's batch), drawn
-    for the global batch and cut to this rank's rows."""
+def global_bernoulli(x: torch.Tensor, shape, keep: float,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A 0/1 mask of ``shape`` in ``x``'s dtype and device (its first axis
+    this rank's batch), drawn for the global batch and cut to this rank's
+    rows: 1 where a uniform draw in [0, 1) is below ``keep``, as JAX's
+    ``bernoulli``, so every value is kept at ``keep`` 1 and none at 0
+    (``bernoulli_`` on CUDA compares a draw in (0, 1] and drops about one
+    value in 2^24 at ``keep`` 1)."""
     rank, world = data_parallel()
     n = shape[0]
-    full = x.new_empty((n * world,) + tuple(shape[1:]))
-    return full.bernoulli_(keep, generator=generator)[rank * n:(rank + 1) * n]
+    u = torch.rand((n * world,) + tuple(shape[1:]), generator=generator,
+                   device=x.device, dtype=x.dtype)
+    return (u[rank * n:(rank + 1) * n] < keep).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -30,7 +36,7 @@ def dropout(x: torch.Tensor, p: float,
     """Elementwise dropout (flax ``nn.Dropout``: kept values scaled by
     ``1 / (1 - p)``)."""
     keep = 1.0 - p
-    return x * _global_bernoulli(x, x.shape, keep, generator) / keep
+    return x * global_bernoulli(x, x.shape, keep, generator) / keep
 
 
 def drop_path(x: torch.Tensor, rate: float,
@@ -44,4 +50,4 @@ def drop_path(x: torch.Tensor, rate: float,
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    return x / keep * _global_bernoulli(x, shape, keep, generator)
+    return x / keep * global_bernoulli(x, shape, keep, generator)

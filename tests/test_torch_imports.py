@@ -112,6 +112,16 @@ BACKBONE_MODULES = {
 }
 
 
+# modules of the SegFormer / losses / small-CLIs slice
+SEGFORMER_MODULES = {
+    "gaiaseg_tpu_torch.models.backbones.elastic_mixvit",
+    "gaiaseg_tpu_torch.models.decode_heads.segformer_head",
+    "gaiaseg_tpu_torch.models.losses.eql",
+    "gaiaseg_tpu_torch.tools.image_demo",
+    "gaiaseg_tpu_torch.tools.mean_std",
+}
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          capture_output=True, text=True, timeout=300,
@@ -121,7 +131,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     names = set(names.split(","))
     want = VIT_MODULES | DATA_MODULES | LOOP_MODULES | SUBNET_MODULES \
         | PARALLEL_MODULES | DEEPLAB_MODULES | DISTILL_MODULES \
-        | BACKBONE_MODULES
+        | BACKBONE_MODULES | SEGFORMER_MODULES
     assert len(names) >= 30 and want <= names, want - names
     assert bad.strip() == "[]", bad
 
@@ -171,10 +181,22 @@ def _entry_finetune_cli():
     finetune_supernet.main([FLAGSHIP, "missing.pth", "--work-dir", "unused"])
 
 
+def _entry_image_demo_cli():
+    from gaiaseg_tpu_torch.tools import image_demo
+    image_demo.main([FLAGSHIP, "missing.pth", "missing.png"])
+
+
+def _entry_mean_std_cli():
+    from gaiaseg_tpu_torch.tools import mean_std
+    mean_std.main([FLAGSHIP])
+
+
 @pytest.mark.parametrize("entry", [_entry_train_cli, _entry_train_segmentor,
                                    _entry_evaluate, _entry_test_supernet_cli,
                                    _entry_init_segmentor, _entry_population,
-                                   _entry_extract_cli, _entry_finetune_cli])
+                                   _entry_extract_cli, _entry_finetune_cli,
+                                   _entry_image_demo_cli,
+                                   _entry_mean_std_cli])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="cuda"):
         entry()
