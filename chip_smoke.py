@@ -132,7 +132,32 @@ Phases, each printing its own lines; any failure exits non-zero:
             process's. Then ``python -m torch.distributed.run
             --nproc_per_node 1`` of the train CLI on the flagship for 8
             iterations: an NCCL group of world size 1, finite losses.
-13. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
+13. tp      tensor parallelism (``model_parallel`` 2) on the one card, its
+            ranks over gloo sharing cuda:0: (i) the elastic ViT-B/16
+            UPerNet of ``vit_train`` (1024 tokens, flash on) on 2 ranks at
+            samples_per_gpu 4 (JAX's global batch 8): one float32 MAX step
+            (K3-K5's float32 instances on each rank's 6 heads, AdamW + clip
+            1.0) against one process's at batch 8 from the same weights
+            (loss within 1e-5 relative; against one process's float32
+            step, the gradients' global distance and the update's
+            elements that change sign within about 10x an H100's
+            readings, each tensor's gradient within twice its own float32
+            distance from float64; the gradients' distance from float64
+            within twice one process's float32 one, its float32 repeat
+            printed; the replicated gradients' distance between the ranks
+            before model rank 0's broadcast printed), then a bf16 sandwich
+            cycle (MAX, a MIN of 4 heads and FFN 1536 that leaves rank 1 no
+            head or feature, 2 random) cold and warm: K1/K2 8 a rank,
+            K3-K5 once a layer where the rank holds an active head, each
+            rank's parameter and AdamW bytes against one process's, bytes
+            moved a step on each axis, step ms, peak memory, the shard
+            report equal to ``tp_plan`` and the replicated parameters equal
+            on both ranks; (ii) the flagship's float64 MAX step on 2 ranks at
+            model_parallel 2 (every sharded conv gathered on use) against
+            phase ddp's one process x 8 within 1e-6; (iii) the same on 2
+            data x 2 model ranks at samples_per_gpu 2 (the crop cut to
+            512x512, reference alike, when 4 ranks do not fit).
+14. flash_kernels  K3 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5
             (``flash_bwd_dq``) against their plain torch versions at the ViT
             shape [8, 1024, 12, 64] in bf16 and float32, at N = 1025, 200
             (ragged tails), 1088 (a half-empty last 128-row block), 64 (one
@@ -141,11 +166,11 @@ Phases, each printing its own lines; any failure exits non-zero:
             beside the plain version, SDPA and the bound, K3 beside SDPA's
             forward and the port's whole attention backward
             (``attention_di`` + K4 + K5) beside SDPA's backward, in turns.
-14. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
+15. vit_segmentor  the elastic-ViT segmentor's loss and gradients through
             the flash kernels equal the dense attention route (bf16, a
             batch of 8); two planted faults in dq (zeroed, halved) must
             fail that check.
-15. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
+16. vit_train  one sandwich cycle (MAX, MIN, 2 random) of the elastic-ViT
             UPerNet supernet (``configs/_dynamic_/models/upernet_elastic_
             vit.py`` with ``with_cls_token=False``, so the flash gate opens)
             at full width, synthetic 512x512 records kept on the card
@@ -154,7 +179,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             K3-K5 must each launch once per active layer, K1/K2 twice per
             iteration. Then the cycle again for warm times, a profiled
             MAX step, and the least step times over three warm cycles.
-16. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
+17. vit_eval  the config's slide mode (crop 512, stride 341: 1 x 3 windows
             of four synthetic 512x1024 images, one forward an image) at the
             val anchors MIN and MAX, then flip, multi-scale (0.75, 1.0) and
             whole runs at MAX, seconds an image each; flash_fwd launches
@@ -162,7 +187,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             (float32, flash off) within 1e-4 of max|ref| of a slide built
             from each window's whole inference.
 
-17. convnext  K1 and K2 at this path's loss shapes (150 classes: decode
+18. convnext  K1 and K2 at this path's loss shapes (150 classes: decode
             128x128, aux 32x32 -> 512x512, the any-C instances) against
             their plain versions in float32 and bf16, each twice
             bit-equal, and their times; the ConvNeXt-T supernet
@@ -184,18 +209,18 @@ Phases, each printing its own lines; any failure exits non-zero:
             own CUDA convolutions within 1e-3 of its max or within twice
             the CPU float32's distance (cuDNN's, which round more in
             float32, printed).
-18. conformer  the same for the ``ElasticConvformer`` defaults (stem 64,
+19. conformer  the same for the ``ElasticConvformer`` defaults (stem 64,
             widths 256/512/1024, depths 4/4/4, embed 576, 9 heads, FFN 4.0,
             ``norm_eval``) with the heads at in-channels 256/512/1024/1024;
             MIN at half of every width, embed 384 with 6 heads, FFN 3.0,
             depths 2/2/2.
-19. vit_relpos  ``upernet_elastic_vit.py`` at full width with relative
+20. vit_relpos  ``upernet_elastic_vit.py`` at full width with relative
             positions, token dropout 0.1 and the cls token (1025 tokens),
             batch 8 of 512x512: a MAX and a MIN step (K1/K2 twice a step,
             K3-K5 never: the flash gate stays closed, as JAX's), warm and
             least step times, a profiled MAX step, peak memory, the float32
             card-vs-CPU MAX step.
-20. segformer  the SegFormer supernet (``configs/_dynamic_/models/
+21. segformer  the SegFormer supernet (``configs/_dynamic_/models/
             segformer_elastic_mixvit.py`` as it stands: ElasticMixViT with
             MiT-B2's encoder shapes, widths 64/128/320/512, depths 3/4/6/3,
             heads 2/4/10/16 of dim 32, SR 8/4/2/1, FFN 4.0, + SegFormerHead
@@ -243,7 +268,7 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
                    "upernet_elastic_vit.py")
 PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
-          "eval", "loop", "subnets", "deeplab", "distill", "ddp",
+          "eval", "loop", "subnets", "deeplab", "distill", "ddp", "tp",
           "flash_kernels", "vit_segmentor", "vit_train", "vit_eval",
           "convnext", "conformer", "vit_relpos", "segformer")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -1982,14 +2007,16 @@ def _ddp_model(cfg, device):
     return build_segmentor(cfg["model"]).to(device)
 
 
-def _one_step(cfg, rows, device, dtype, rank_bn=False):
+def _one_step(cfg, rows, device, dtype, rank_bn=False, model_parallel=1):
     """One train step of the model's MAX from seed 0 in ``dtype`` (autocast
     off) on records ``rows`` of DDP_WORLD x DDP_BATCH synthetic records of
     the train records' size (seed 3): (summed loss, {name: grad}), the
     gradients summed over the ranks (every rank holds them). ``rank_bn``:
     in one process, BN takes the ranks' arithmetic (``sync_batch_norm``
     with rank 0's row of the combined statistics, the others empty) in
-    place of cuDNN's: a second one-process route that rounds otherwise."""
+    place of cuDNN's: a second one-process route that rounds otherwise.
+    ``model_parallel`` K > 1 shards the model over a mesh of K model ranks
+    first; the gradients come back at full shape."""
     import contextlib
     import torch
     from gaiaseg_tpu_torch.data import SyntheticDataset
@@ -1999,6 +2026,9 @@ def _one_step(cfg, rows, device, dtype, rank_bn=False):
     from gaiaseg_tpu_torch.ops import dynamic_layers
     from gaiaseg_tpu_torch.parallel import sum_over_ranks
     model = _ddp_model(cfg, device).to(dtype).train()
+    if model_parallel > 1:
+        from gaiaseg_tpu_torch.parallel import make_mesh, shard_state
+        shard_state(model, make_mesh(model_parallel))
     ds = SyntheticDataset(length=DDP_WORLD * DDP_BATCH,
                           size=tuple(cfg["data"]["train"]["size"]),
                           num_classes=model.num_classes, seed=3, cells=8)
@@ -2018,7 +2048,7 @@ def _one_step(cfg, rows, device, dtype, rank_bn=False):
     finally:
         train_mod.autocast, dynamic_layers.data_parallel = amp, dp
     loss = float(sum_over_ranks(logs["loss"].double()))
-    grads = {k: p.grad for k, p in model.named_parameters()}
+    grads = {k: _full(p.grad, p) for k, p in model.named_parameters()}
     return loss, grads
 
 
@@ -2189,6 +2219,7 @@ def phase_ddp(ctx):
         print(f"[ddp] peak memory GB of the one-process steps: {peak}")
         ref_path = os.path.join(tmp, "ref.pt")
         torch.save({k: refs[k] for k in ("float64", "float32")}, ref_path)
+        ctx["ddp_ref64"] = refs["float64"]     # phase tp's reference
         del refs
         torch.cuda.empty_cache()
 
@@ -2303,6 +2334,605 @@ def phase_ddp(ctx):
             "seconds": nccl_s, "history": nccl_hist},
             "ranks": [{k: v for k, v in res.items() if k != "checksums"}
                       for res in ranks]}
+    finally:
+        reset_launches()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the tp phase: tensor parallelism over a model axis of 2 (JAX's
+# model_parallel), its ranks over gloo sharing cuda:0 as phase ddp's (NCCL
+# refuses two ranks on one device)
+TP_K = 2
+TP_TIMEOUT_S = 900
+TP_VIT_SAMPLES = 4          # samples_per_gpu: JAX's global batch 4 x 2 = 8
+TP_VIT_BATCH = 8
+TP_VIT_LR = 6e-5            # the ViT config's AdamW, weight decay 0.01
+TP_VIT_CLIP = 1.0
+# the float32 step under TP may be no farther from one process's float32
+# step, and from the float64 step, than TP_FLOOR_RATIO times one process's
+# float32 step is from float64 (gradients: global L2 and each tensor's L2;
+# the update: its elements that change sign); the one-process float32
+# repeat is printed beside it
+TP_FLOOR_RATIO = 2.0
+F32_EPS = 2.0 ** -23        # float32's machine epsilon
+# the float32 step under TP against one process's float32 step, about 10x
+# what an H100 80GB HBM3 reads (PERF.md): the gradients' global L2 2.39e-4
+# (float32 reads 3.56e-2 from float64) and 252 elements of the AdamW
+# update that change sign (float32 vs float64: 1,493,551)
+TP_VS_ONE_GLOBAL = 2.5e-3
+TP_VS_ONE_FLIPS = 2500
+# the cycle's MIN: 4 of 12 heads and FFN 1536 of 3072 in every layer, so
+# model rank 1 (heads 6-11, FFN features 1536-3071) holds none of them
+TP_MIN = {"name": "MIN", "arch.backbone.embedding.width": 384,
+          "arch.backbone.encoder.depth": 8,
+          "arch.backbone.encoder.num_heads": [4] * 12,
+          "arch.backbone.encoder.ffn_channels": [1536] * 12}
+TP_FLAGSHIP_SAMPLES = 2     # the 2 x 2 mesh: 2 x 4 ranks = the batch of 8
+TP_CUT_CROP = (512, 512)    # the 2 x 2 flagship crop when 4 ranks do not fit
+
+
+def _tp_vit_cfg():
+    cfg = _vit_cfg()
+    cfg.merge_from_dict({"data.samples_per_gpu": TP_VIT_SAMPLES,
+                         "model_parallel": TP_K})
+    cfg["train_sampler"]["model_samplers"][0]["anchors"][1] = dict(TP_MIN)
+    return cfg
+
+
+def _tp_vit_batch(cfg, device):
+    """8 records of the train crop's size (phase vit_segmentor's at
+    512x512) on ``device``, labels partly ignored."""
+    from gaiaseg_tpu_torch.data import SyntheticDataset, parse_train_pipeline
+    from gaiaseg_tpu_torch.engine import prepare_batch
+    crop = parse_train_pipeline(cfg["data"]["train"].get("pipeline")) \
+        .crop_size
+    ds = SyntheticDataset(length=TP_VIT_BATCH, size=tuple(crop),
+                          num_classes=19, seed=5, cells=8)
+    img, gt = prepare_batch([ds[i] for i in range(TP_VIT_BATCH)],
+                            cfg["img_norm_cfg"], device)
+    gt[:, :8] = 255
+    return img, gt
+
+
+def _full(t, p):
+    """``t`` (a parameter's value or gradient) at the parameter's full
+    shape: gathered over the model group when the parameter is sharded."""
+    from gaiaseg_tpu_torch.parallel.tensor_parallel import gather_full, \
+        tp_info
+    info = tp_info(p)
+    return t if info is None else gather_full(t, info)
+
+
+def _tp_vit_step(model, img, gt, arch, dtype, flash):
+    """One AdamW + clip step of the ViT at MAX in ``dtype`` (autocast off):
+    (loss, clip norm, {name: full gradient after the clip}, {name: full
+    update}, the optimizer, the step's bytes moved on each axis)."""
+    import contextlib
+    import torch
+    from gaiaseg_tpu_torch.engine import build_optimizer
+    from gaiaseg_tpu_torch.engine import train as train_mod
+    from gaiaseg_tpu_torch.parallel import distributed, sum_over_ranks
+    _set_flash(model, flash)
+    model.to(dtype).train()
+    with torch.no_grad():
+        before = {k: _full(p.detach(), p).clone()
+                  for k, p in model.named_parameters()}
+    opt = build_optimizer(model.parameters(), {
+        "type": "AdamW", "lr": TP_VIT_LR, "weight_decay": 0.01})
+    amp = train_mod.autocast
+    train_mod.autocast = lambda device: contextlib.nullcontext()
+    distributed.reset_traffic()
+    try:
+        logs = train_mod.train_step(
+            model, opt, img.to(dtype), gt, arch,
+            torch.Generator(img.device).manual_seed(0), TP_VIT_CLIP)
+    finally:
+        train_mod.autocast = amp
+    traffic = dict(distributed.TRAFFIC)
+    with torch.no_grad():
+        grads = {k: _full(p.grad, p).cpu().clone() for k, p in
+                 model.named_parameters()}
+        update = {k: (_full(p.detach(), p) - before[k]).cpu()
+                  for k, p in model.named_parameters()}
+    return (float(sum_over_ranks(logs["loss"].double())),
+            float(logs["grad_norm"]), grads, update, opt, traffic)
+
+
+def _state_bytes(model, opt):
+    """(parameter bytes, optimizer-state bytes) this process holds."""
+    import torch
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    state = sum(v.numel() * v.element_size() for st in opt.state.values()
+                for v in st.values() if isinstance(v, torch.Tensor))
+    return params, state
+
+
+def _tp_vit_rank(rank, world, port, state_path, out_path, cfg_dict,
+                 device):
+    """One rank of part (i): the float32 MAX step, then the bf16 sandwich
+    cycle through ``train_segmentor`` (cold and warm) with the launch
+    counts, state bytes, per-axis traffic and peak memory."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    from gaiaseg_tpu_torch import parallel
+    from gaiaseg_tpu_torch.engine import configure_numerics, train_segmentor
+    from gaiaseg_tpu_torch.models import (build_segmentor, encode_arch,
+                                          model_max_arch)
+    from gaiaseg_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from gaiaseg_tpu_torch.parallel import distributed
+    from gaiaseg_tpu_torch.utils import Config
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    configure_numerics()
+    parallel.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                    backend="gloo", timeout_s=TP_TIMEOUT_S)
+    out = {}
+    cfg = Config(cfg_dict)
+    state = torch.load(state_path)
+
+    def fresh():
+        model = build_segmentor(cfg["model"])
+        model.load_state_dict(state)
+        model = model.to(device)
+        parallel.shard_state(model, parallel.make_mesh(TP_K))
+        return model
+    from gaiaseg_tpu_torch.engine import train as train_mod
+    sync = train_mod.sync_replicated_grads
+    drift = []
+
+    def recorded(params):
+        """The broadcast of the replicated gradients, with this rank's
+        distance from model rank 0's before it (atomics may round the
+        ranks' copies apart on the card)."""
+        params = list(params)
+        mine = {id(p): p.grad.detach().clone() for p in params
+                if p.grad is not None and getattr(p, "tp", None) is None}
+        moved = sync(params)
+        d2 = r2 = 0.0
+        worst, differ = 0.0, 0
+        for p in params:
+            if id(p) not in mine:
+                continue
+            ref = p.grad.detach().double()
+            d = (mine[id(p)].double() - ref).abs()
+            d2 += float(d.square().sum())
+            r2 += float(ref.square().sum())
+            worst = max(worst, float(d.max()))
+            differ += int(bool(d.max() > 0))
+        drift.append({"global": (d2 / max(r2, 1e-300)) ** 0.5,
+                      "max_abs": worst, "tensors_differ": differ,
+                      "tensors": len(mine)})
+        return moved
+    train_mod.sync_replicated_grads = recorded
+    try:
+        # 1. the float32 MAX step on the batch of 8 (one data index)
+        model = fresh()
+        out["report"] = parallel.shard_report(model)
+        img, gt = _tp_vit_batch(cfg, device)
+        arch = encode_arch(model_max_arch(cfg["model"]))
+        reset_launches()
+        loss, norm, grads, update, opt, traffic = _tp_vit_step(
+            model, img, gt, arch, torch.float32, True)
+        out["f32"] = {"loss": loss, "norm": norm,
+                      "launches": dict(LAUNCHES), "traffic": traffic,
+                      "bytes": _state_bytes(model, opt),
+                      "drift": list(drift)}
+        drift.clear()
+        if rank == 0:
+            torch.save({"grads": grads, "update": update},
+                       out_path + ".f32")
+        del model, opt, grads, update, img, gt
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 2. the bf16 sandwich cycle (MAX, MIN, 2 random), then again warm
+        model = fresh()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        distributed.reset_traffic()
+        st, hist = train_segmentor(model, cfg, device=device,
+                                   max_iters=VIT_ITERS, seed=0)
+        out["launches"] = dict(LAUNCHES)
+        out["traffic"] = dict(distributed.TRAFFIC)
+        out["drift"] = list(drift)
+        train_mod.sync_replicated_grads = sync
+        out["history"] = hist["loss"]
+        out["bytes"] = _state_bytes(model, st.optimizer)
+        out["warm"] = train_segmentor(model, cfg, device=device,
+                                      max_iters=VIT_ITERS, seed=0)[1]["loss"]
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+            if cuda else None
+        # K3-K5's device time in a profiled bf16 MAX step on the head shard
+        out["profile"] = _profile_max_step(model, cfg, out["warm"],
+                                           f"tp rank {rank}") if cuda \
+            else None
+        # replicated parameters equal on both model ranks, bit for bit,
+        # after the broadcasts
+        sums = {k: float(p.detach().double().sum())
+                for k, p in model.named_parameters()
+                if getattr(p, "tp", None) is None}
+        out["replicated_equal"] = len(set(
+            tuple(sorted(s.items()))
+            for s in parallel.all_gather_objects(sums))) == 1
+        parallel.barrier()
+    finally:
+        train_mod.sync_replicated_grads = sync
+        torch.save(out, out_path)
+        parallel.shutdown_distributed()
+
+
+def _tp_flagship_rank(rank, world, port, cfg_dict, out_path, device):
+    """One rank of parts (ii) and (iii): the flagship's float64 MAX step at
+    ``model_parallel`` 2 (data index d reads records [d*n, (d+1)*n) of the
+    8); rank 0 saves the loss and the full gradients."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    from gaiaseg_tpu_torch import parallel
+    from gaiaseg_tpu_torch.engine import configure_numerics
+    from gaiaseg_tpu_torch.utils import Config
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    configure_numerics()
+    parallel.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                    backend="gloo", timeout_s=TP_TIMEOUT_S)
+    out = {}
+    try:
+        d_size = world // TP_K
+        n = DDP_WORLD * DDP_BATCH // d_size
+        d = rank // TP_K
+        loss, grads = _one_step(Config(cfg_dict), slice(d * n, (d + 1) * n),
+                                device, torch.float64,
+                                model_parallel=TP_K)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+            if device == "cuda" else None
+        if rank == 0:
+            out["loss"] = loss
+            out["grads"] = {k: g.cpu() for k, g in grads.items()}
+        parallel.barrier()
+    finally:
+        torch.save(out, out_path)
+        parallel.shutdown_distributed()
+
+
+def _spawn_ranks(target, world, args_of, tag):
+    """``target(rank, world, port, *args_of(rank))`` on ``world`` spawned
+    processes; raises unless every one exits 0 within TP_TIMEOUT_S."""
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    spawn = mp.get_context("spawn")
+    procs = [spawn.Process(target=target, args=(r, world, port,
+                                                *args_of(r)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(TP_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    check(all(p.exitcode == 0 for p in procs),
+          f"tp: {tag} rank exit codes {[p.exitcode for p in procs]}")
+    return time.perf_counter() - t0
+
+
+def _dist(got, ref):
+    """Global L2 and worst per-tensor max|d|/max|ref| of two {name:
+    tensor} maps."""
+    d2 = sum(float((got[k].double() - v.double()).square().sum())
+             for k, v in ref.items())
+    r2 = sum(float(v.double().square().sum()) for v in ref.values())
+    worst = max((float((got[k].double() - v.double()).abs().max())
+                 / max(float(v.abs().max()), 1e-30), k)
+                for k, v in ref.items())
+    return {"global": (d2 / max(r2, 1e-300)) ** 0.5, "worst": worst[0],
+            "worst_tensor": worst[1]}
+
+
+def _tp_vit(ctx, tmp, smi):
+    """Part (i): the ViT at full width on 2 ranks at model_parallel 2."""
+    import torch
+    from gaiaseg_tpu_torch.archspace import build_model_sampler
+    from gaiaseg_tpu_torch.models import (build_segmentor, encode_arch,
+                                          model_max_arch)
+    from gaiaseg_tpu_torch.parallel import tp_plan
+    cfg = _tp_vit_cfg()
+    model = _build_model(cfg)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    state_path = os.path.join(tmp, "vit_state.pt")
+    torch.save(state, state_path)
+    n_full = sum(p.numel() for p in model.parameters())
+    img, gt = _tp_vit_batch(cfg, "cuda")
+    arch = encode_arch(model_max_arch(cfg["model"]))
+    # one process x 8: float64 (dense attention: the kernels take bf16 and
+    # float32), float32 on K3-K5's float32 instances, twice
+    one = {}
+    for name, dtype, flash in (("float64", torch.float64, False),
+                               ("float32", torch.float32, True),
+                               ("float32_again", torch.float32, True)):
+        model.load_state_dict(state)
+        torch.cuda.reset_peak_memory_stats()
+        loss, norm, grads, update, opt, _ = _tp_vit_step(
+            model, img, gt, arch, dtype, flash)
+        one[name] = {"loss": loss, "norm": norm, "grads": grads,
+                     "update": update,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if name == "float32":
+            one_bytes = _state_bytes(model, opt)
+        del opt, grads, update
+        torch.cuda.empty_cache()
+    del model, img, gt
+    torch.cuda.empty_cache()
+    plan = tp_plan(build_segmentor(cfg["model"]), TP_K)
+    # K3-K5 launch once a layer on a rank whose shard holds an active head
+    sampler = build_model_sampler(cfg["train_sampler"])
+    archs = [encode_arch(model_max_arch(cfg["model"]), sampler.sample())
+             ["backbone"]["encoder"] for _ in range(VIT_ITERS)]
+    per = 12 // TP_K
+    flash_want = [sum(1 for a in archs for i in range(a["depth"])
+                      if a["num_heads"][i] > m * per) for m in range(TP_K)]
+
+    outs = [os.path.join(tmp, f"vit_rank{r}.pt") for r in range(TP_K)]
+    secs = _spawn_ranks(_tp_vit_rank, TP_K, lambda r: (
+        state_path, outs[r], cfg.to_dict(), "cuda"), "vit")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    tp32 = torch.load(outs[0] + ".f32", weights_only=False)
+    ref = one["float64"]
+    e = {"tp_grads": _dist(tp32["grads"], ref["grads"]),
+         "one_grads": _dist(one["float32"]["grads"], ref["grads"]),
+         "repeat_grads": _dist(one["float32_again"]["grads"],
+                               one["float32"]["grads"]),
+         "tp_update": _dist(tp32["update"], ref["update"]),
+         "one_update": _dist(one["float32"]["update"], ref["update"])}
+    one32, f64 = one["float32"], ref
+    e["tp_vs_one_grads"] = _dist(tp32["grads"], one32["grads"])
+    # each tensor: TP's distance from one process's float32 step against
+    # that step's own distance from float64 (its float32 noise; at least
+    # float32's epsilon of the tensor), in L2
+    ratios = []
+    for k, v in f64["grads"].items():
+        v = v.double()
+        noise = max(float((one32["grads"][k].double() - v).norm()),
+                    F32_EPS * float(v.norm()))
+        d = float((tp32["grads"][k].double()
+                   - one32["grads"][k].double()).norm())
+        ratios.append((d / noise if noise > 0 else (0.0 if d == 0
+                                                    else math.inf), k))
+    ratios.sort(reverse=True)
+    # AdamW's first update is +-lr an element, so its distance says little:
+    # count the elements whose update changed sign (|d| > lr) from one
+    # process's float32 step, against float32's own count from float64
+
+    def flipped(a, b):
+        return sum(int(((a[k] - b[k]).abs() > TP_VIT_LR).sum())
+                   for k in f64["update"])
+    flip = max(float((tp32["update"][k] - one32["update"][k]).abs().max())
+               for k in f64["update"])
+    flips = flipped(tp32["update"], one32["update"])
+    flips_floor = flipped(one32["update"], f64["update"])
+    loss_rel = abs(ranks[0]["f32"]["loss"] - one32["loss"]) \
+        / abs(one32["loss"])
+    limit = TP_FLOOR_RATIO * e["one_grads"]["global"]
+    print(f"[tp] ViT-B/16 UPerNet at 1024 tokens, MAX, batch 8, float32 "
+          f"(K3-K5's float32 instances, TF32 off), AdamW + clip "
+          f"{TP_VIT_CLIP}: 2 ranks at model_parallel {TP_K} vs one process: "
+          f"loss {ranks[0]['f32']['loss']:.7f} vs {one32['loss']:.7f}"
+          f" (rel {loss_rel:.1e}), clip norm {ranks[0]['f32']['norm']:.6f} "
+          f"vs {one32['norm']:.6f}")
+    print(f"[tp] gradients vs one process's float64 (dense): 2 ranks "
+          f"global {e['tp_grads']['global']:.2e} worst "
+          f"{e['tp_grads']['worst']:.1e} ({e['tp_grads']['worst_tensor']}); "
+          f"one process float32 (the floor) global "
+          f"{e['one_grads']['global']:.2e} worst {e['one_grads']['worst']:.1e}"
+          f"; one process float32 repeat vs float32 global "
+          f"{e['repeat_grads']['global']:.2e}; tolerance "
+          f"{TP_FLOOR_RATIO} x floor = {limit:.2e}")
+    print(f"[tp] gradients, 2 ranks vs one process's float32: global "
+          f"{e['tp_vs_one_grads']['global']:.2e} (tolerance "
+          f"{TP_VS_ONE_GLOBAL:.1e}), "
+          f"worst max|d|/max|ref| {e['tp_vs_one_grads']['worst']:.1e} ("
+          f"{e['tp_vs_one_grads']['worst_tensor']}); each tensor's L2 "
+          f"distance over one process's float32 distance from float64: "
+          + ", ".join(f"{r:.3f} ({k})" for r, k in ratios[:3])
+          + f", median {ratios[len(ratios) // 2][0]:.3f}; tolerance "
+          f"{TP_FLOOR_RATIO}")
+    print(f"[tp] updates vs float64: 2 ranks global "
+          f"{e['tp_update']['global']:.2e}, one process float32 "
+          f"{e['one_update']['global']:.2e}; 2 ranks vs one process float32:"
+          f" max|d| {flip:.2e}, {flips} of {n_full} elements changed sign "
+          f"(|d| > lr {TP_VIT_LR:.0e}; tolerance {TP_VS_ONE_FLIPS}); one "
+          f"process float32 vs float64: {flips_floor}")
+    check(loss_rel <= F32_LOSS_RTOL,
+          f"tp: ViT float32 loss rel {loss_rel:.1e} to one process")
+    check(e["tp_grads"]["global"] <= limit,
+          f"tp: ViT float32 gradients {e['tp_grads']['global']:.2e} from "
+          f"float64, limit {limit:.2e}")
+    check(e["tp_vs_one_grads"]["global"] <= TP_VS_ONE_GLOBAL,
+          f"tp: ViT float32 gradients {e['tp_vs_one_grads']['global']:.2e} "
+          f"from one process's float32, limit {TP_VS_ONE_GLOBAL:.1e}")
+    check(ratios[0][0] <= TP_FLOOR_RATIO,
+          f"tp: ViT float32 gradient of {ratios[0][1]} is {ratios[0][0]:.3f}"
+          f" x one process's float32 noise from one process's")
+    check(flips <= min(TP_VS_ONE_FLIPS, TP_FLOOR_RATIO * flips_floor),
+          f"tp: ViT float32 update changed sign in {flips} elements from "
+          f"one process's, limit {TP_VS_ONE_FLIPS} (float32 from float64: "
+          f"{flips_floor})")
+    for r, res in enumerate(ranks):
+        d = res["f32"]["drift"] + res["drift"]
+        print(f"[tp] ViT rank {r}: replicated gradients before model rank "
+              f"0's broadcast, from rank 0's: float32 MAX step global "
+              f"{res['f32']['drift'][0]['global']:.2e} max|d| "
+              f"{res['f32']['drift'][0]['max_abs']:.2e} ("
+              f"{res['f32']['drift'][0]['tensors_differ']} of "
+              f"{res['f32']['drift'][0]['tensors']} tensors differ); bf16 "
+              f"cycle global " + ", ".join(
+                  f"{x['global']:.2e}" for x in res["drift"])
+              + f" ({max(x['tensors_differ'] for x in res['drift'])} "
+              f"tensors differ at most)")
+        check(len(res["f32"]["drift"]) == 1 and res["drift"]
+              and all(math.isfinite(x["global"]) for x in d),
+              f"tp: rank {r} replicated-gradient readings {d}")
+    for r, res in enumerate(ranks):
+        check(res["report"] == plan, f"tp: rank {r} shard report differs "
+              "from tp_plan")
+        check(res["replicated_equal"], f"tp: rank {r}: replicated "
+              "parameters differ across the model ranks after the cycle "
+              "(the broadcasts keep them equal)")
+    routes = {}
+    for name, (_, _, route) in plan.items():
+        routes[route] = routes.get(route, 0) + 1
+    print(f"[tp] shard report: {len(plan)} of {len(state)} tensors sharded "
+          f"(routes {routes}); replicated parameters equal on both ranks "
+          "after the cycle (checksums)")
+
+    # the cycle: archs, launches per rank, bytes, traffic, times, memory
+    names = [h["arch"] for h in ranks[0]["history"]]
+    check(names == ["MAX", "MIN", "random", "random"],
+          f"tp: ViT cycle archs {names}")
+    for r, res in enumerate(ranks):
+        check(all(math.isfinite(h["loss"]) for h in res["history"]),
+              f"tp: rank {r} non-finite loss")
+        for k in ("resize_ce_fwd", "resize_ce_bwd"):
+            check(res["launches"][k] == 2 * VIT_ITERS,
+                  f"tp: rank {r} {k} launched {res['launches'][k]} times")
+        for k in FLASH_KERNELS:
+            check(res["launches"][k] == flash_want[r],
+                  f"tp: rank {r} {k} launched {res['launches'][k]} times, "
+                  f"want {flash_want[r]} (its layers with an active head)")
+            check(res["f32"]["launches"][k] == 12,
+                  f"tp: rank {r} {k} launched {res['f32']['launches'][k]} "
+                  "times in the float32 MAX step, want 12")
+    check([h["loss"] for h in ranks[0]["history"]]
+          == [h["loss"] for h in ranks[1]["history"]],
+          "tp: the model ranks logged different losses")
+    bytes_one = one_bytes
+    t = {"checks": e, "flip_max": flip, "flips": flips,
+         "flips_floor": flips_floor, "tensor_ratios": ratios[:10],
+         "loss_rel": loss_rel,
+         "tolerance": limit, "flash_want": flash_want, "one_process": {
+             k: {kk: v[kk] for kk in ("loss", "norm", "peak_gb")}
+             for k, v in one.items()},
+         "one_process_bytes": bytes_one, "seconds": secs,
+         "ranks": [{k: v for k, v in res.items()} for res in ranks]}
+    for r, res in enumerate(ranks):
+        p_b, o_b = res["bytes"]
+        steps = len(res["history"])
+        print(f"[tp] ViT rank {r}: parameters {p_b / 1e9:.3f} GB, AdamW "
+              f"state {o_b / 1e9:.3f} GB (one process {bytes_one[0] / 1e9:.3f}"
+              f" + {bytes_one[1] / 1e9:.3f} GB: {p_b / bytes_one[0]:.3f}, "
+              f"{o_b / bytes_one[1]:.3f}); per step moved model axis "
+              f"{res['traffic']['model'] / steps / 1e6:.1f} MB, data axis "
+              f"{res['traffic']['data'] / steps / 1e6:.1f} MB (float32 MAX "
+              f"step: {res['f32']['traffic']['model'] / 1e6:.1f} / "
+              f"{res['f32']['traffic']['data'] / 1e6:.1f} MB); K1-K5 "
+              + "/".join(str(res["launches"][k]) for k in (
+                  "resize_ce_fwd", "resize_ce_bwd") + FLASH_KERNELS)
+              + "; bf16 cycle step ms " + ", ".join(
+                  f"{h['arch']} {h['step_ms']:.1f}" for h in res["history"])
+              + "; warm " + ", ".join(
+                  f"{h['arch']} {h['step_ms']:.1f}" for h in res["warm"])
+              + "; least MAX {:.1f} ms".format(min(
+                  h["step_ms"] for h in res["history"] + res["warm"]
+                  if h["arch"] == "MAX"))
+              + f"; peak {res['peak_gb'] or 0:.2f} GB; on {smi}")
+    ctx["tp_vit"] = t
+    return ranks
+
+
+def _tp_flagship(ctx, tmp, smi, world, ref, cfg, tag):
+    """Parts (ii) and (iii): the flagship float64 MAX step on ``world``
+    ranks at model_parallel 2 against the one-process reference ``ref``."""
+    import torch
+    outs = [os.path.join(tmp, f"{tag}_rank{r}.pt") for r in range(world)]
+    secs = _spawn_ranks(_tp_flagship_rank, world, lambda r: (
+        cfg.to_dict(), outs[r], "cuda"), tag)
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    e = _grad_errors(ranks[0]["loss"], ranks[0]["grads"], ref["loss"],
+                     ref["grads"])
+    d = world // TP_K
+    print(f"[tp] flagship float64 MAX step, {d} data x {TP_K} model ranks "
+          f"({world}) vs one process x {DDP_WORLD * DDP_BATCH}: loss rel "
+          f"{e['loss_rel']:.1e}, grad global {e['global_rel']:.2e}, median "
+          f"{e['median_grad_rel']:.1e}, worst {e['worst_grad_rel']:.1e} "
+          f"({e['worst_tensor']}); tolerance {DDP_F64_RTOL}; peak GB a rank "
+          f"{[round(r['peak_gb'] or 0, 2) for r in ranks]}; {secs:.1f} s")
+    check(e["loss_rel"] <= DDP_F64_RTOL
+          and e["worst_grad_rel"] <= DDP_F64_RTOL,
+          f"tp: flagship {tag}: loss rel {e['loss_rel']:.1e}, worst grad "
+          f"{e['worst_grad_rel']:.1e} ({e['worst_tensor']})")
+    e.pop("worst5", None)
+    return {"errors": e, "seconds": secs,
+            "peak_gb": [r["peak_gb"] for r in ranks]}
+
+
+def phase_tp(ctx):
+    """Tensor parallelism on the card: (i) the ViT at model_parallel 2 on
+    2 gloo ranks (float32 MAX step vs one process, a bf16 sandwich cycle);
+    (ii) the flagship's float64 MAX step on 2 ranks and (iii) on 2 data x 2
+    model ranks, each against one process."""
+    import shutil
+    import tempfile
+    import torch
+    from gaiaseg_tpu_torch.ops.cuda import reset_launches
+    smi = ctx.get("nvidia_smi") or nvidia_smi_line()
+    tmp = tempfile.mkdtemp(prefix="gseg_tp_")
+    torch.cuda.empty_cache()
+    print(f"[tp] the ranks share cuda:0 over gloo, whose all_reduce and "
+          f"broadcast take CUDA tensors (copied through the host by gloo); "
+          f"the port's model-axis gather is one all_reduce of a zero-padded "
+          f"buffer, nothing is staged by the port; this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    try:
+        ranks = _tp_vit(ctx, tmp, smi)
+        ctx["tp_launches"] = {k: sum(r["launches"][k] for r in ranks)
+                              for k in ranks[0]["launches"]}
+        ctx["tp_rank_launches"] = [r["launches"] for r in ranks]
+
+        # (ii) the flagship at model_parallel 2 on 2 ranks, float64
+        ref = ctx.get("ddp_ref64")
+        cfg8 = _ddp_cfg(DDP_WORLD * DDP_BATCH)
+        if ref is None:
+            loss, grads = _one_step(cfg8, slice(None), "cuda",
+                                    torch.float64)
+            ref = {"loss": loss, "grads": {k: g.cpu()
+                                           for k, g in grads.items()}}
+            del grads
+            torch.cuda.empty_cache()
+        res = {"flagship_2": _tp_flagship(ctx, tmp, smi, TP_K, ref, cfg8,
+                                          "flagship_2")}
+        # (iii) 2 data x 2 model ranks, samples_per_gpu 2: 4 float64 ranks
+        # of 4 records each must fit beside this process
+        cfg4 = _ddp_cfg(TP_FLAGSHIP_SAMPLES)
+        free = torch.cuda.mem_get_info()[0] / 1e9
+        per_rank = (ctx.get("ddp") or {}).get("peak_gb", {}).get(
+            "float64", 35.1) / 2
+        need = 2 * TP_K * per_rank * 1.25
+        if need > free:
+            cfg4.merge_from_dict({"data.train.size": list(TP_CUT_CROP)})
+            cfg8c = _ddp_cfg(DDP_WORLD * DDP_BATCH)
+            cfg8c.merge_from_dict({"data.train.size": list(TP_CUT_CROP)})
+            loss, grads = _one_step(cfg8c, slice(None), "cuda",
+                                    torch.float64)
+            ref = {"loss": loss, "grads": {k: g.cpu()
+                                           for k, g in grads.items()}}
+            del grads
+            torch.cuda.empty_cache()
+            print(f"[tp] 2 x 2: 4 float64 ranks of 4 records need ~{need:.1f}"
+                  f" GB, {free:.1f} GB free: the crop is cut to "
+                  f"{TP_CUT_CROP[0]}x{TP_CUT_CROP[1]} (records and the "
+                  "one-process reference alike)")
+        else:
+            print(f"[tp] 2 x 2 at 512x1024: ~{need:.1f} GB needed, "
+                  f"{free:.1f} GB free")
+        res["flagship_2x2"] = _tp_flagship(ctx, tmp, smi, 2 * TP_K, ref,
+                                           cfg4, "flagship_2x2")
+        ctx["tp"] = {"vit": ctx.pop("tp_vit"), **res}
     finally:
         reset_launches()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3543,13 +4173,19 @@ REPLACES = {
 
 def _path_launches(ctx, k):
     """K1/K2 launches over the main paths that ran: the flagship train
-    cycle, the distill phase's BEiT-teacher cycle and the ConvNeXt,
-    Conformer, relative-position ViT and SegFormer cycles, each counted
-    from 0."""
-    runs = [c[k] for c in [ctx.get("launches")] + [
+    cycle, the distill phase's BEiT-teacher cycle, the ConvNeXt,
+    Conformer, relative-position ViT and SegFormer cycles and the tp
+    phase's ViT cycle (both ranks), each counted from 0."""
+    runs = [c[k] for c in [ctx.get("launches"), ctx.get("tp_launches")] + [
         (ctx.get(tag) or {}).get("launches")
         for tag in ("distill", "convnext", "conformer", "vit_relpos",
                     "segformer")] if c]
+    return sum(runs) if runs else None
+
+
+def _flash_launches(ctx, k):
+    runs = [c[k] for c in (ctx.get("vit_launches"), ctx.get("tp_launches"))
+            if c]
     return sum(runs) if runs else None
 
 
@@ -3557,7 +4193,8 @@ def kernels_line(ctx):
     """One entry per kernel. K1/K2: times per flagship train step (its
     decode-loss and aux-loss launches added), launches from the main
     paths' cycles (``_path_launches``). K3-K5: times per launch at the ViT
-    train shape, launches from the ViT train cycle."""
+    train shape, launches from the ViT train cycle and the tp phase's
+    cycle on head shards (both ranks)."""
     out = []
     timings = ctx.get("kernel_timings", {})
     for k in ("resize_ce_fwd", "resize_ce_bwd"):
@@ -3585,7 +4222,7 @@ def kernels_line(ctx):
             "name": k, "route": "cuda",
             "source": "gaiaseg_tpu_torch/csrc/flash_attention.cu",
             "replaces": REPLACES[k],
-            "launches": ctx.get("vit_launches", {}).get(k),
+            "launches": _flash_launches(ctx, k),
             "max_abs_err": ctx.get("flash_max_abs_err", {}).get(k),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"),
@@ -3652,6 +4289,7 @@ def main(argv) -> int:
                    "subnets": ctx.get("subnets"),
                    "deeplab": ctx.get("deeplab"),
                    "distill": ctx.get("distill"), "ddp": ctx.get("ddp"),
+                   "tp": ctx.get("tp"),
                    "flash_timings": ctx.get("flash_timings"),
                    "flash_forward": ctx.get("flash_forward"),
                    "flash_backward": ctx.get("flash_backward"),

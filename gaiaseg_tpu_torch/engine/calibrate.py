@@ -18,9 +18,11 @@ with ``norm_eval``) normalize with their running statistics and never
 re-estimate them, so calibration keeps theirs. The JAX package resets
 them to (0, 1) first and so leaves them there (ROADMAP C11).
 
-Across ranks, rank 0 calibrates alone (its collectives off) on the records
-one process would read, and every rank takes its statistics by broadcast,
-so all ranks hold the one-process statistics bit for bit.
+Across ranks, data index 0 calibrates alone (its data collectives off;
+under tensor parallelism its K model ranks calibrate together, gathering
+their sharded weights) on the records one process would read, and every
+rank takes its statistics by broadcast over the data axis, so all ranks
+hold the one-process statistics bit for bit.
 """
 from __future__ import annotations
 
@@ -123,7 +125,7 @@ def calibrate_bn(model, dataset, arch, *, num_batches: int = 16,
     ``num_batches`` forward passes in train mode (no parameter changes);
     returns ``model``. The caller keeps the new statistics or puts back the
     ones it saved with ``bn_stats``. ``device`` defaults to the model's.
-    Across ranks: rank 0's calibration, broadcast to all."""
+    Across ranks: data index 0's calibration, broadcast to all."""
     rank, world = data_parallel()
     if world > 1:
         if rank == 0:

@@ -16,6 +16,11 @@ these files.
 - A file is written under a temporary name and renamed into place, and
   ``latest.pth`` is a symlink swapped in the same way, so a crash leaves
   either the old file or the new one.
+- A model sharded over a ``model`` axis (``parallel.mesh.shard_state``) is
+  saved at full shapes: every rank gathers its parameters and optimizer
+  state (``write=False`` on all but the writer), so the file is the one a
+  single process writes, under the same names. Loading cuts each full
+  entry to the rank's shard, so a file loads at any K, or with none.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..archspace.meta import meta_hash
+from ..parallel.mesh import (gather_optimizer_state, gather_state_dict,
+                             shard_optimizer_state, shard_state_dict)
+from ..parallel.tensor_parallel import is_sharded
 
 logger = logging.getLogger("gaiaseg_tpu_torch")
 LATEST = "latest.pth"
@@ -43,14 +51,26 @@ def _to_cpu(obj):
 
 
 def save_checkpoint(path: str, model, optimizer=None,
-                    meta: Optional[Dict[str, Any]] = None) -> None:
+                    meta: Optional[Dict[str, Any]] = None,
+                    write: bool = True) -> None:
     """Write ``model``'s state dict, ``optimizer``'s state and ``meta`` to
-    ``path`` (via a temporary file in the same directory)."""
-    os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
-    ckpt = {"meta": dict(meta or {}),
-            "state_dict": _to_cpu(model.state_dict())}
+    ``path`` (via a temporary file in the same directory). A sharded
+    model's state is gathered first, a collective: every rank calls this,
+    and those with ``write=False`` only join the gathers."""
+    sharded = is_sharded(model)
+    if not (write or sharded):
+        return
+    sd = gather_state_dict(model) if sharded else model.state_dict()
+    osd = None
     if optimizer is not None:
-        ckpt["optimizer"] = _to_cpu(optimizer.state_dict())
+        osd = gather_optimizer_state(optimizer) if sharded \
+            else optimizer.state_dict()
+    if not write:
+        return
+    os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
+    ckpt = {"meta": dict(meta or {}), "state_dict": _to_cpu(sd)}
+    if osd is not None:
+        ckpt["optimizer"] = _to_cpu(osd)
     tmp = f"{path}.tmp{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
@@ -73,7 +93,7 @@ def load_checkpoint(path: str, model, optimizer=None, strict: bool = False,
     sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
     if all(k.startswith("module.") for k in sd):
         sd = {k[len("module."):]: v for k, v in sd.items()}
-    res = model.load_state_dict(sd, strict=strict)
+    res = model.load_state_dict(shard_state_dict(model, sd), strict=strict)
     if res.missing_keys:
         logger.warning("%s: missing keys in source state_dict: %s", path,
                        ", ".join(res.missing_keys))
@@ -82,7 +102,8 @@ def load_checkpoint(path: str, model, optimizer=None, strict: bool = False,
                        ", ".join(res.unexpected_keys))
     if optimizer is not None and isinstance(ckpt, dict) \
             and "optimizer" in ckpt:
-        optimizer.load_state_dict(ckpt["optimizer"])
+        optimizer.load_state_dict(shard_optimizer_state(optimizer,
+                                                        ckpt["optimizer"]))
     return dict(ckpt.get("meta") or {}) if isinstance(ckpt, dict) else {}
 
 

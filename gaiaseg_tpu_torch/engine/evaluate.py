@@ -16,10 +16,11 @@ read in place (``gather_prepare_eval_batch``).
 population on it, one sliced subnet after another where the JAX package
 ``vmap``s a stacked arch; each arch may bring its own BN statistics.
 
-Across ranks (JAX ``evaluate.py:91-92, 121-125``) each rank sweeps its
-shard of the records (``i::W``, its own padded tail ignored) and the int64
-confusion matrices are summed, so every rank returns the one-process
-metrics exactly; the archs come from rank 0.
+Across ranks (JAX ``evaluate.py:91-92, 121-125``) each data index sweeps
+its shard of the records (``i::D`` over the D data indices, its own padded
+tail ignored; the K model ranks of a data index read the same records)
+and the int64 confusion matrices are summed over the data axis, so every
+rank returns the one-process metrics exactly; the archs come from rank 0.
 """
 from __future__ import annotations
 

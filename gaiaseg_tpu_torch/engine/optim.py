@@ -30,13 +30,21 @@ optimizer every step.
 - ``clip_by_global_norm`` (first in the chain) is ``clip_grad_norm``
   below, not ``torch.nn.utils.clip_grad_norm_``: optax scales by
   ``max_norm / norm`` and only when ``norm >= max_norm``; torch scales by
-  ``max_norm / (norm + 1e-6)`` whenever that is below 1.
+  ``max_norm / (norm + 1e-6)`` whenever that is below 1. Under tensor
+  parallelism the norm is the whole model's: the sharded parameters'
+  squared norms summed over the model group, the replicated ones once.
+- Under tensor parallelism the optimizer holds the shards
+  (``parallel.mesh.shard_state`` first), so SGD's momentum and Adam's
+  moments are shard-shaped, as JAX's mirror the parameter's sharding.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Iterable, List, Optional, Set
 
 import torch
+
+from ..parallel.distributed import model_parallel
+from ..parallel.tensor_parallel import grad_sq_norm
 
 
 def scale_lr(base_lr: float, global_batch: int, scaler_cfg: Optional[Dict]
@@ -151,10 +159,14 @@ def clip_grad_norm(params: Iterable[torch.nn.Parameter],
     ``max_norm / norm`` when the global norm is at least ``max_norm``.
     Returns the norm before clipping (no host sync), in float32 (float64
     for float64 gradients)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.to(torch.promote_types(
-            g.dtype, torch.float32))) for g in grads]))
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    if model_parallel()[1] > 1:
+        norm = grad_sq_norm(params).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.to(torch.promote_types(
+                g.dtype, torch.float32))) for g in grads]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)

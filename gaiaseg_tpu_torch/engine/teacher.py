@@ -37,6 +37,7 @@ import torch
 
 from ..models.backbones.beit import BEiT
 from ..models.segmentors.dynamic_distiller import TEACHER_PREFIXES
+from ..parallel.mesh import shard_state_dict
 from .ckpt_surgery import surgery_beit_checkpoint
 
 logger = logging.getLogger("gaiaseg_tpu_torch")
@@ -123,6 +124,7 @@ def load_teacher_checkpoint(path: str, model) -> Dict[str, list]:
                            f"entries the teacher does not have, e.g. "
                            f"{unknown[:4]}")
         kind = "official-layout teacher segmentor"
+    src = shard_state_dict(model, src)     # a sharded teacher: its shards
     for k, v in src.items():
         if tuple(v.shape) != tuple(own[k].shape):
             raise ValueError(f"teacher checkpoint {path}: {k} is "

@@ -25,6 +25,18 @@ BN and the loss span the ranks and the gradients are summed before the
 update, so the run computes what one process does at batch W·B (JAX's
 ``global_batch``), which also scales the LR and the epoch schedule. Rank 0
 alone writes checkpoints, ``history.json`` and log lines.
+
+``model_parallel`` K > 1 in the config (JAX ``engine/train.py:445-448``)
+lays the W ranks out as a ``data x model`` mesh (``parallel.mesh``) and
+shards the model's parameters over the model axis before the optimizer is
+built (``shard_state``, JAX's ``tp_spec`` and its ``1 << 16`` gate); the
+checkpoints and a teacher file load into the shards. The global batch
+stays ``samples_per_gpu`` x W, sharded over the data axis only: each data
+index reads ``samples_per_gpu`` x K samples and its K model ranks read the
+same ones. BN, the loss and the
+gradient all-reduce span the data axis; the replicated parameters'
+gradients are made equal over the model axis, and the clip's norm is the
+whole model's. Checkpoints are gathered to full shapes.
 """
 from __future__ import annotations
 
@@ -52,7 +64,10 @@ from ..models.arch_util import encode_arch, model_max_arch
 from ..ops.dynamic_layers import frozen_bn_stats
 from ..parallel.distributed import (all_reduce_grads, barrier,
                                     broadcast_object, data_parallel,
-                                    is_main_process, sum_over_ranks)
+                                    is_main_process, model_parallel,
+                                    sum_over_ranks)
+from ..parallel.mesh import DEFAULT_MIN_SIZE, make_mesh, shard_state
+from ..parallel.tensor_parallel import sync_replicated_grads
 from ..utils.device import resolve_device
 from .calibrate import bn_stats, calibrate_bn, load_bn_stats
 from .checkpoint import (latest_checkpoint, load_checkpoint, save_checkpoint,
@@ -96,7 +111,9 @@ def train_step(model, optimizer: torch.optim.Optimizer, img: torch.Tensor,
     gradients are summed over the ranks (in flat buckets) before the
     zero-fill and the clip. Every parameter of ``model`` that takes a
     gradient counts in the clip's norm, those the optimizer does not hold
-    (frozen stages) too; a distiller's teacher takes none."""
+    (frozen stages) too; a distiller's teacher takes none. Under tensor
+    parallelism the replicated parameters take model index 0's gradients
+    first, and the sums run over the data axis."""
     # across ranks the gradients start unset, so the reduction carries only
     # those this arch reaches (elastic depth leaves whole blocks without)
     model.zero_grad(set_to_none=data_parallel()[1] > 1)
@@ -106,6 +123,7 @@ def train_step(model, optimizer: torch.optim.Optimizer, img: torch.Tensor,
     with stats, autocast(img.device):
         total, logs = model.forward_train(img, gt, arch, generator)
     total.backward()
+    sync_replicated_grads(params)
     all_reduce_grads(params)
     for p in params:
         if p.grad is None:   # outside this subnet: decay + moments only
@@ -281,7 +299,8 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
                     max_iters: Optional[int] = None, seed: int = 0,
                     resume_from: Optional[str] = None,
                     load_from: Optional[str] = None,
-                    log: Optional[Callable[[str], None]] = None
+                    log: Optional[Callable[[str], None]] = None,
+                    iter_hook: Optional[Callable[[int], None]] = None
                     ) -> Tuple[TrainState, Dict[str, List[Dict[str, Any]]]]:
     """Train ``model`` per ``cfg`` (JAX ``engine/train.py:431-1034``, one
     step per dispatch); returns ``(state, history)``.
@@ -313,11 +332,15 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
       checkpoint just did it) into ``history["eval"]``.
 
     ``history`` (keys ``loss``, ``eval``, ``val_loss``) is also written to
-    ``work_dir/history.json``.
+    ``work_dir/history.json``. ``iter_hook(it)`` is called before each
+    iteration ``it`` and once after the last (the CLI's ``--profile``).
     """
     device = resolve_device(device)
     model.to(device).train()
-    world = data_parallel()[1]
+    mesh = make_mesh(int(cfg.get("model_parallel", 1) or 1))
+    shard_state(model, mesh, DEFAULT_MIN_SIZE)
+    tp = model_parallel()[1]
+    world = data_parallel()[1] * tp
     main = is_main_process()
     if not main:
         log = None
@@ -340,7 +363,7 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
     test_pipe = parse_test_pipeline((data_cfg.get("val") or {})
                                     .get("pipeline"))
     batch_size = int(data_cfg.get("samples_per_gpu", 2))
-    global_batch = batch_size * world
+    global_batch = batch_size * world     # JAX: samples_per_gpu x devices
     epoch_iters, lr_config = resolve_epoch_schedule(
         cfg, len(train_dataset), global_batch)
     max_iters = max_iters or epoch_iters or _max_iters(cfg)
@@ -382,7 +405,7 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
     wf_val = next((int(n) for m, n in workflow if m == "val"), 0)
     val_phase = None
     if wf_val and val_dataset is not None:
-        val_phase = _ValPhase(model, val_dataset, batch_size, test_pipe,
+        val_phase = _ValPhase(model, val_dataset, batch_size * tp, test_pipe,
                               cfg.get("train_sampler"), max_arch, device,
                               wf_val)
     max_enc = encode_arch(max_arch)
@@ -401,12 +424,14 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
     history: Dict[str, List[Dict[str, Any]]] = {"loss": [], "eval": [],
                                                 "val_loss": []}
     window = _Window(time.perf_counter())
-    batches = make_train_feed(train_dataset, pipe, batch_size,
+    batches = make_train_feed(train_dataset, pipe, batch_size * tp,
                               model.num_classes, device, seed,
                               int(cfg.get("device_prefetch", 4)))
     it = start
     try:
         while it < max_iters:
+            if iter_hook is not None:
+                iter_hook(it)
             t0 = time.perf_counter()
             img, gt, ready = next(batches)
             take((img, gt), ready)
@@ -445,12 +470,12 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
                          f"in {time.perf_counter() - t:.4f}s")
                     calibrated = ckpt_calib >= eval_calib
                 path = osp.join(work_dir, f"iter_{it}.pth")
+                t = time.perf_counter()
+                save_checkpoint(path, model, optimizer, meta={
+                    "iter": it, "CLASSES": meta_classes,
+                    "PALETTE": getattr(train_dataset, "PALETTE", None),
+                    "max_arch": max_arch}, write=main)
                 if main:
-                    t = time.perf_counter()
-                    save_checkpoint(path, model, optimizer, meta={
-                        "iter": it, "CLASSES": meta_classes,
-                        "PALETTE": getattr(train_dataset, "PALETTE", None),
-                        "max_arch": max_arch})
                     update_latest(work_dir, path)
                     _say(log, f"saved {path} ({osp.getsize(path) / 1e6:.1f}"
                          f" MB) in {time.perf_counter() - t:.4f}s")
@@ -473,6 +498,8 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
                 _say(log, f"iter {it} cross-arch eval: " + ", ".join(
                     f"{k} mIoU={v['mIoU']:.4f} ({v['seconds']:.2f}s)"
                     for k, v in res.items()))
+        if iter_hook is not None:
+            iter_hook(it)
     finally:
         batches.close()     # stops the prefetch thread, drops staged batches
     if work_dir is not None and main:

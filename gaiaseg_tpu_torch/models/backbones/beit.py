@@ -130,6 +130,9 @@ class BEiTBlock(nn.Module):
 
 @BACKBONES.register_module(name=["BEiT", "Beit"])
 class BEiT(nn.Module):
+    # JAX names the timm patch embedding's conv ``patch_embed``
+    jax_names = {"patch_embed.proj": "patch_embed"}
+
     def __init__(self, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, patch_size: int = 16,
                  mlp_ratio: float = 4.0, init_values: float = 0.1,

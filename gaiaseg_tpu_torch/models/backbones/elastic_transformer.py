@@ -36,6 +36,16 @@ the JAX gate: ``use_flash``, a CUDA tensor, a sequence length that is a
 multiple of 128 and no relative positions. With the cls token a 512x512
 crop at patch 16 has 1025 tokens, so the flash route needs
 ``with_cls_token=False`` (1024 tokens).
+
+Under tensor parallelism (``parallel.mesh.shard_state`` over K model
+ranks) the attention and the FFN of a layer run as Megatron pairs when
+the heads split evenly and there are no relative positions: rank ``m``
+holds the q, k and v rows of heads ``[m*H/K, (m+1)*H/K)`` of ``qkv`` and
+the matching input columns of ``proj``, and FFN rows ``[m*F/K,
+(m+1)*F/K)`` of ``fc1`` with those columns of ``fc2``. The active heads
+and FFN width stay prefixes: a rank works on the part of the prefix in its
+shard (possibly none, when its zero-width products still join the
+collectives) and the flash kernels run on its active heads.
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ from torch import nn
 from ...ops.cuda.flash_attention import flash_attention
 from ...ops.dropout import dropout
 from ...ops.dynamic_layers import DynConv2d, DynLayerNorm, DynLinear
+from ...parallel.tensor_parallel import copy_to_model, row_linear
 from ...utils.registry import BACKBONES
 
 HEAD_DIM = 64   # fixed head width; heads are elastic
@@ -194,10 +205,23 @@ class ElasticRelativePosition2D(nn.Module):
             + torch.einsum("bhng,ngd->bnhd", a_c, e_c)
 
 
+def _local_width(active: int, per_rank: int, index: int) -> int:
+    """The part of an active prefix of ``active`` that falls in the shard
+    ``[index * per_rank, (index + 1) * per_rank)``."""
+    return min(max(active - index * per_rank, 0), per_rank)
+
+
 class ElasticMHA(nn.Module):
     """Multi-head self-attention over the first ``num_heads`` heads of the
     MAX ``qkv``/``proj`` weights and the active embed width, with JAX's
-    relative positions when ``with_rel_pos``."""
+    relative positions when ``with_rel_pos``. ``tp_megatron = (m, K)``
+    (set by ``shard_state``) runs it as a column/row pair on model rank
+    ``m``'s heads."""
+
+    # the JAX leaves of the fused qkv, and the Megatron pair (column, row)
+    jax_fused = {"qkv": ("w_q", "w_k", "w_v")}
+    tp_pair = ("qkv", "proj")
+    tp_megatron = None
 
     def __init__(self, embed_dim: int, max_heads: int,
                  use_flash: bool = False, with_rel_pos: bool = False,
@@ -213,20 +237,43 @@ class ElasticMHA(nn.Module):
             self.rel_pos_embed_k = ElasticRelativePosition2D(rel_max_dist)
             self.rel_pos_embed_v = ElasticRelativePosition2D(rel_max_dist)
 
+    def megatron_split(self, k: int) -> bool:
+        """Whether the pair runs as Megatron layers over ``k`` ranks: whole
+        heads a rank and no relative-position tables (whose gradient every
+        head adds to)."""
+        return self.max_heads % k == 0 and self.rel_pos_embed_k is None
+
     def forward(self, x: torch.Tensor, num_heads: int,
                 rel_index=None) -> torch.Tensor:
+        """The active heads of this rank's shard (all of them in one
+        process): its rows of q, k and v and of the replicated bias,
+        attention on them, its columns of ``proj``; under a Megatron pair
+        the partial outputs are summed over the model group before
+        ``proj``'s bias."""
+        m, k = self.tp_megatron or (0, 1)
         b, n, c = x.shape
-        inner, width = self.max_heads * HEAD_DIM, num_heads * HEAD_DIM
-        w, bias = self.qkv.weight, self.qkv.bias
-        if num_heads < self.max_heads:   # rows of the active heads of q, k, v
-            w = torch.cat([w[i * inner:i * inner + width] for i in range(3)])
-            bias = torch.cat([bias[i * inner:i * inner + width]
-                              for i in range(3)])
-        qkv = F.linear(x, w[:, :c], bias).view(b, n, 3, num_heads, HEAD_DIM)
-        q, k, v = qkv.unbind(2)          # [B, N, h, 64] strided views
+        per = self.max_heads // k
+        heads = _local_width(num_heads, per, m)
+        width = heads * HEAD_DIM
+        x, bias = copy_to_model(k, x, self.qkv.bias)
+        w = self.qkv.weight.view(3, per * HEAD_DIM, -1)[:, :width, :c]
+        off = m * per * HEAD_DIM
+        bias = bias.view(3, -1)[:, off:off + width]
+        qkv = F.linear(x, w.reshape(3 * width, c), bias.reshape(-1))
+        q, k_, v = qkv.view(b, n, 3, heads, HEAD_DIM).unbind(2)
+        # no head here: the empty products still carry the input's gradient
+        out = self._attend(q, k_, v, rel_index) if heads else q + k_ + v
+        return row_linear(k, out.reshape(b, n, width),
+                          self.proj.weight[:c, :width], self.proj.bias[:c])
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                rel_index) -> torch.Tensor:
+        """Attention of ``q``, ``k``, ``v`` ``[B, N, h, 64]`` -> ``[B, N,
+        h, 64]``: the flash kernels under the gate, else dense."""
+        n = q.shape[1]
         scale = 1.0 / math.sqrt(HEAD_DIM)
         rel = self.rel_pos_embed_k is not None and rel_index is not None
-        if self.use_flash and x.is_cuda and n % 128 == 0 and not rel:
+        if self.use_flash and q.is_cuda and n % 128 == 0 and not rel:
             out = flash_attention(q * scale, k, v)
         else:
             # float32 logits and softmax (float64 for float64 inputs)
@@ -239,13 +286,22 @@ class ElasticMHA(nn.Module):
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
             if rel:
                 out = out + self.rel_pos_embed_v.values(attn, rel_index)
-        return self.proj(out.reshape(b, n, width), c)
+        return out
 
 
 class ElasticEncoderLayer(nn.Module):
     """Pre-norm transformer layer: x + attn(norm1(x)), then + mlp(norm2).
     ``gelu`` is the MLP's GELU: ``'none'`` the exact (erf) form of the
-    ViT's layers, ``'tanh'`` flax's default of Conformer's blocks."""
+    ViT's layers, ``'tanh'`` flax's default of Conformer's blocks.
+    ``tp_megatron = (m, K)`` runs the FFN as a column/row pair on model
+    rank ``m``'s features."""
+
+    tp_pair = ("mlp.fc1", "mlp.fc2")
+    tp_megatron = None
+
+    @staticmethod
+    def megatron_split(k: int) -> bool:
+        return True      # the rule shards fc1/fc2 only when K divides F
 
     def __init__(self, embed_dim: int, max_heads: int, max_ffn: int,
                  use_flash: bool = False, with_rel_pos: bool = False,
@@ -262,13 +318,29 @@ class ElasticEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, num_heads: int,
                 ffn_channels: int, rel_index=None) -> torch.Tensor:
         x = x + self.attn(self.norm1(x), num_heads, rel_index)
-        z = self.mlp["fc1"](self.norm2(x), ffn_channels)
-        return x + self.mlp["fc2"](F.gelu(z, approximate=self.gelu),
-                                   x.shape[-1])
+        return x + self._mlp(self.norm2(x), ffn_channels)
+
+    def _mlp(self, x: torch.Tensor, ffn: int) -> torch.Tensor:
+        """The FFN on this rank's features (all of them in one process):
+        its rows of ``fc1`` and of the replicated bias in the active
+        width, its columns of ``fc2``; under a Megatron pair the partial
+        outputs are summed over the model group before ``fc2``'s bias."""
+        m, k = self.tp_megatron or (0, 1)
+        fc1, fc2 = self.mlp["fc1"], self.mlp["fc2"]
+        per = fc1.weight.shape[0]
+        f = _local_width(ffn, per, m)
+        c = x.shape[-1]
+        x, b1 = copy_to_model(k, x, fc1.bias)
+        z = F.linear(x, fc1.weight[:f, :c], b1[m * per:m * per + f])
+        return row_linear(k, F.gelu(z, approximate=self.gelu),
+                          fc2.weight[:c, :f], fc2.bias[:c])
 
 
 @BACKBONES.register_module(name=["ElasticTransformer", "ElasticTransformer1"])
 class ElasticTransformer(nn.Module):
+    # JAX names the timm patch embedding's conv ``patch_embed``
+    jax_names = {"patch_embed.proj": "patch_embed"}
+
     def __init__(self, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, ffn_ratio: float = 4.0,
                  patch_size: int = 16, img_size: int = 224,
@@ -355,7 +427,8 @@ class ElasticTransformer(nn.Module):
         b = x.shape[0]
         gh, gw = x.shape[2] // self.patch_size, x.shape[3] // self.patch_size
         x = self.patch_embed["proj"](x, emb).flatten(2).transpose(1, 2)
-        cls_pos, grid_pos = self.pos_embed[:, :1], self.pos_embed[:, 1:]
+        pos = self.pos_embed     # one read (a gather under tensor parallelism)
+        cls_pos, grid_pos = pos[:, :1], pos[:, 1:]
         if (gh, gw) != (self.ref_grid, self.ref_grid):
             grid_pos = resize_pos_grid(grid_pos, (gh, gw))
         x = x + grid_pos[..., :emb]

@@ -9,7 +9,8 @@ the seg pad value).
 
 Across ranks every mean is the global batch's: this rank returns its share
 and the ranks' shares add up to it. A denominator that counts pixels or
-weights is summed over the ranks (``sum_over_ranks``); a ``sum`` is its own
+weights is summed over the ranks of the data axis (``sum_over_ranks``: the
+K model ranks of a data index hold the same pixels); a ``sum`` is its own
 share; ``none`` returns this rank's pixels.
 """
 from __future__ import annotations

@@ -3,9 +3,10 @@
 ``F.dropout`` takes no generator, so a run could not replay its draws; the
 functions here draw their masks (``global_bernoulli``, which EQL's loss
 uses too) from the caller's ``torch.Generator`` (the train step's, on the
-step's device). Across W ranks each rank draws the masks of the
-global batch from the shared generator and keeps its own rows, so a
-sample's mask is the one a single process at the global batch draws.
+step's device). Across the D indices of the data axis each rank draws
+the masks of the global batch from the shared generator and keeps its data
+index's rows, so a sample's mask is the one a single process at the global
+batch draws, and the K model ranks of a data index draw the same one.
 """
 from __future__ import annotations
 

@@ -114,14 +114,15 @@ class DynBatchNorm(nn.Module):
     step's ``mutable=[]``: in train mode it still normalizes with the batch
     statistics, and no running statistic changes.
 
-    Across ranks (``parallel.data_parallel()`` world W > 1) the train-mode
-    statistics are those of the global batch, as the JAX module's under a
-    sharded batch: ``sync_batch_norm``. ``stat_groups=G`` (JAX ``:242``,
-    ``:273-296``) takes them per contiguous group of ``global batch / G``
-    samples instead, the running statistics tracking the group average; a
-    global batch that G does not divide falls back to global statistics,
-    as in JAX. Under W ranks a group must lie inside one rank (G a multiple
-    of W). Eval mode reads the running statistics and calls no collective.
+    Across the data axis (``parallel.data_parallel()`` size W > 1) the
+    train-mode statistics are those of the global batch, as the JAX
+    module's under a sharded batch: ``sync_batch_norm``. ``stat_groups=G``
+    (JAX ``:242``, ``:273-296``) takes them per contiguous group of
+    ``global batch / G`` samples instead, the running statistics tracking
+    the group average; a global batch that G does not divide falls back to
+    global statistics, as in JAX. Under W data indices a group must lie
+    inside one (G a multiple of W). Eval mode reads the running statistics
+    and calls no collective.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,

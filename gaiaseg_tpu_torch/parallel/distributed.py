@@ -1,4 +1,5 @@
-"""Data parallelism across processes over ``torch.distributed``.
+"""Data parallelism across processes over ``torch.distributed``, and the
+process groups of the ``data`` and ``model`` mesh axes.
 
 The counterpart of ``gaiaseg_tpu/parallel/mesh.py:127-199`` under the same
 public names. The JAX package runs one program over a mesh whose ``data``
@@ -12,19 +13,33 @@ summed over ranks.
 Without a process group, or with one of world size 1, nothing here calls a
 collective: every function returns its input or the one-process answer.
 
-Transport, by backend:
+With a ``data x model`` mesh (``parallel.mesh.make_mesh(model_parallel=K)``,
+K > 1) rank ``r`` is data index ``r // K`` and model index ``r % K``, and
+each axis has its own subgroup. ``data_parallel()`` is then the data axis's
+``(index, size)``, and ``all_reduce_sum``, ``sum_over_ranks``,
+``all_reduce_grads`` and ``broadcast_tensors`` reduce over the data group:
+the K model ranks of one data index hold the same samples, so a reduction
+over every rank would count each sample K times. ``model_parallel()`` and
+``model_all_reduce_sum`` / ``model_broadcast`` span the model group (tensor
+parallelism, ``parallel/tensor_parallel.py``). Objects (the arch broadcast,
+the gathers of eval results) and ``barrier`` keep to every rank.
 
-- ``nccl`` (the card): tensor collectives are ``all_reduce`` and
-  ``broadcast`` on the card (a CPU tensor is staged through the card).
-  Python objects travel as pickled uint8 tensors on the host, through a
-  ``gloo`` group made beside the default one at the first use, so a
-  broadcast of an arch never waits on the card's queue.
+Transport, by backend: tensor collectives are ``all_reduce`` and
+``broadcast`` only, on either axis (the model axis gathers a sharded weight
+by one ``all_reduce`` of a zero-padded buffer, ``tensor_parallel.py``).
+
+- ``nccl`` (the card): tensors reduce on the card (a CPU tensor is staged
+  through the current card). Python objects travel as pickled uint8
+  tensors on the host, through a ``gloo`` group made beside the default one
+  at the first use, so a broadcast of an arch never waits on the card's
+  queue.
 - ``gloo`` (the CPU, or ranks that share one card): objects go through the
   default group on the host; ``all_reduce`` and ``broadcast`` of a CUDA
   tensor are gloo's own, which copy through the host.
 
-``local_only()`` turns the model's collectives off for work that one rank
-does alone (BN calibration on rank 0).
+``local_only()`` turns the data axis's collectives off for work that one
+data index does alone (BN calibration on data index 0); the model axis
+stays on, since its K ranks hold one model together.
 """
 from __future__ import annotations
 
@@ -45,6 +60,15 @@ BUCKET_ELEMS = 1 << 24
 # process-wide, as the process group itself is
 _objects_group = None   # the host group that carries objects under nccl
 _local_depth = 0        # > 0 inside local_only()
+_axes = None            # MeshAxes of a data x model mesh with K > 1
+# bytes each axis's tensor collectives have moved (a rank's input sizes),
+# for the readings of a step; ``reset_traffic`` sets them to 0
+TRAFFIC = {"data": 0, "model": 0}
+
+
+def reset_traffic() -> None:
+    for k in TRAFFIC:
+        TRAFFIC[k] = 0
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -101,10 +125,11 @@ def initialize_distributed(coordinator: Optional[str] = None,
 
 def shutdown_distributed() -> None:
     """Leave the process group (no-op without one)."""
-    global _objects_group
+    global _objects_group, _axes
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _objects_group = None
+    _axes = None
 
 
 def local_rank(rank: Optional[int] = None) -> int:
@@ -143,7 +168,8 @@ def current_backend() -> Optional[str]:
 @contextlib.contextmanager
 def local_only() -> Iterator[None]:
     """Within the block ``data_parallel()`` is ``(0, 1)``: the model's BN
-    and loss run on this rank's tensors alone, as in one process."""
+    and loss run on this data index's tensors alone, as in one process.
+    The model axis is left on."""
     global _local_depth
     _local_depth += 1
     try:
@@ -152,17 +178,54 @@ def local_only() -> Iterator[None]:
         _local_depth -= 1
 
 
+class MeshAxes:
+    """The process groups of a ``data x model`` mesh (K > 1): this rank's
+    index on each axis, the axis sizes, each axis's subgroup and the global
+    ranks in it (in axis order)."""
+
+    def __init__(self, data_index: int, data_size: int, model_index: int,
+                 model_size: int, data_group, model_group,
+                 data_ranks: Sequence[int], model_ranks: Sequence[int]):
+        self.data_index, self.data_size = data_index, data_size
+        self.model_index, self.model_size = model_index, model_size
+        self.data_group, self.model_group = data_group, model_group
+        self.data_ranks, self.model_ranks = list(data_ranks), \
+            list(model_ranks)
+
+
+def set_mesh_axes(axes: Optional[MeshAxes]) -> None:
+    """Install (or, with None, drop) the mesh's axes for this process."""
+    global _axes
+    _axes = axes
+
+
+def mesh_axes() -> Optional[MeshAxes]:
+    return _axes
+
+
 def data_parallel() -> Tuple[int, int]:
-    """``(rank, world)`` that the model's collectives span: the process
-    group's, or ``(0, 1)`` without one and inside ``local_only()``."""
+    """``(index, size)`` that the model's data collectives span: the data
+    axis of the mesh, else the process group's ``(rank, world)``; ``(0,
+    1)`` without one and inside ``local_only()``."""
     if _local_depth or not (dist.is_available() and dist.is_initialized()):
         return 0, 1
+    if _axes is not None:
+        return _axes.data_index, _axes.data_size
     return dist.get_rank(), dist.get_world_size()
 
 
-# --------------------------------------------------------------------- #
-# tensor collectives (all_reduce and broadcast only)
-# --------------------------------------------------------------------- #
+def model_parallel() -> Tuple[int, int]:
+    """``(index, size)`` on the model axis: ``(0, 1)`` without a mesh of
+    K > 1. ``local_only()`` does not change it."""
+    if _axes is None:
+        return 0, 1
+    return _axes.model_index, _axes.model_size
+
+
+def _data_group():
+    return _axes.data_group if _axes is not None else None
+
+
 def _on_backend(t: torch.Tensor) -> torch.Tensor:
     """``t`` where the backend can reduce it: nccl takes only CUDA
     tensors, so a CPU one is staged through the current card."""
@@ -171,21 +234,26 @@ def _on_backend(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum ``tensor`` over the ranks in place; returns it. No-op in one
-    process."""
-    if data_parallel()[1] == 1:
-        return tensor
+def _reduce(tensor: torch.Tensor, group, axis: str = "data") -> torch.Tensor:
+    TRAFFIC[axis] += tensor.numel() * tensor.element_size()
     work = _on_backend(tensor)
-    dist.all_reduce(work, op=dist.ReduceOp.SUM)
+    dist.all_reduce(work, op=dist.ReduceOp.SUM, group=group)
     if work is not tensor:
         tensor.copy_(work)
     return tensor
 
 
+def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
+    """Sum ``tensor`` over the data axis in place; returns it. No-op in one
+    process."""
+    if data_parallel()[1] == 1:
+        return tensor
+    return _reduce(tensor, _data_group())
+
+
 def sum_over_ranks(tensor: torch.Tensor) -> torch.Tensor:
-    """The sum of ``tensor`` over the ranks, as a new tensor (``tensor``
-    itself in one process)."""
+    """The sum of ``tensor`` over the data axis, as a new tensor
+    (``tensor`` itself in one process)."""
     if data_parallel()[1] == 1:
         return tensor
     return all_reduce_sum(tensor.detach().clone())
@@ -223,33 +291,68 @@ def _flat_collective(tensors: Sequence[torch.Tensor], op) -> int:
 
 
 def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> int:
-    """Sum the gradients of ``params`` that exist over the ranks, in flat
-    buckets; returns the bytes reduced (0 in one process). Every rank
-    must pass the same parameters with gradients in the same order."""
+    """Sum the gradients of ``params`` that exist over the data axis, in
+    flat buckets; returns the bytes reduced (0 in one process). Every rank
+    must pass the same parameters with gradients in the same order (a
+    sharded parameter's gradient is its shard's, summed with the same
+    shard of the other data indices)."""
     if data_parallel()[1] == 1:
         return 0
     grads = [p.grad for p in params if p.grad is not None]
     return _flat_collective(grads, all_reduce_sum) if grads else 0
 
 
+def _broadcast(flat: torch.Tensor, src: int, group,
+               axis: str = "data") -> None:
+    TRAFFIC[axis] += flat.numel() * flat.element_size()
+    work = _on_backend(flat)
+    dist.broadcast(work, src=src, group=group)
+    if work is not flat:
+        flat.copy_(work)
+
+
 def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Overwrite ``tensors`` in place with rank ``src``'s, in flat buckets
-    (no-op in one process)."""
+    """Overwrite ``tensors`` in place with data index ``src``'s (the rank
+    ``src`` without a mesh), in flat buckets (no-op in one process)."""
     if data_parallel()[1] == 1 or not tensors:
         return
+    root = _axes.data_ranks[src] if _axes is not None else src
+    _flat_collective(list(tensors),
+                     lambda flat: _broadcast(flat, root, _data_group()))
 
-    def op(flat):
-        work = _on_backend(flat)
-        dist.broadcast(work, src=src)
-        if work is not flat:
-            flat.copy_(work)
-    _flat_collective(list(tensors), op)
+
+# --------------------------------------------------------------------- #
+# the model axis (tensor parallelism)
+# --------------------------------------------------------------------- #
+def model_all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
+    """Sum ``tensor`` over the model axis in place; returns it (no-op
+    without a mesh of K > 1)."""
+    if _axes is None:
+        return tensor
+    return _reduce(tensor, _axes.model_group, "model")
+
+
+def model_broadcast(tensors: Sequence[torch.Tensor], src: int = 0) -> int:
+    """Overwrite ``tensors`` in place with model index ``src``'s, in flat
+    buckets; returns the bytes moved (0 without a mesh of K > 1)."""
+    if _axes is None or not tensors:
+        return 0
+    root = _axes.model_ranks[src]
+    return _flat_collective(
+        list(tensors),
+        lambda flat: _broadcast(flat, root, _axes.model_group, "model"))
+
+
+def _alone() -> bool:
+    """True where the world-wide functions (objects, barrier) call nothing:
+    one process, or inside ``local_only()``."""
+    return bool(_local_depth) or process_count() == 1
 
 
 def barrier() -> None:
     """Wait until every rank gets here (a one-element all-reduce on the
     object group, so nccl needs no device id). No-op in one process."""
-    if data_parallel()[1] == 1:
+    if _alone():
         return
     dist.all_reduce(torch.zeros(1), group=_object_group())
 
@@ -260,7 +363,8 @@ def barrier() -> None:
 def _object_group():
     """None (the default group) under gloo; under nccl a gloo group of
     every rank, made at the first call (every rank makes it in the same
-    collective order, since objects move only between all ranks)."""
+    collective order, since objects move only between all ranks). It
+    spans every rank under a mesh too."""
     global _objects_group
     if current_backend() != "nccl":
         return None
@@ -273,7 +377,7 @@ def broadcast_object(obj: Any, src: int = 0) -> Any:
     """Rank ``src``'s ``obj`` on every rank (``obj`` itself in one
     process). The length goes first, so the others size their buffer,
     then the pickled bytes."""
-    if data_parallel()[1] == 1:
+    if _alone():
         return obj
     group = _object_group()
     mine = process_index() == src
@@ -291,7 +395,7 @@ def all_gather_objects(obj: Any) -> list:
     process). Lengths first, then the payloads padded to the longest;
     each rank fills its own row of a zero buffer and one all-reduce sums
     the rows."""
-    if data_parallel()[1] == 1:
+    if _alone():
         return [obj]
     group = _object_group()
     rank, world = process_index(), process_count()

@@ -13,6 +13,12 @@
     # optimizer, iteration)
     python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG \
         --work-dir WD --resume-from WD/latest.pth
+    # tensor parallelism: 8 ranks as 4 data x 2 model (the parameters and
+    # their optimizer state sharded over each pair of ranks)
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m gaiaseg_tpu_torch.tools.train_supernet CONFIG --model-parallel 2
+    # a torch.profiler trace of the first 4 iterations in WORK_DIR/trace
+    python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG --profile 4
     # a packed file (gaiaseg_tpu_torch.tools.pack_dataset), kept on the card
     python -m gaiaseg_tpu_torch.tools.train_supernet CONFIG --cfg-options \
         data.train.type=PackedDataset data.train.path=train.gsegpack \
@@ -34,7 +40,12 @@ Under a process group (torchrun's environment, or ``--num-processes`` > 1
 with ``--coordinator`` and ``--process-id``) each rank takes
 ``cuda:LOCAL_RANK`` and the ``nccl`` backend, or ``gloo`` with ``--device
 cpu``; ``--dist-backend`` chooses. Rank 0 writes the checkpoints, the
-history and the log lines.
+history and the log lines. ``--model-parallel K`` (the config's
+``model_parallel``) lays the ranks out as a ``data x model`` mesh and
+shards the parameters over groups of K ranks (``parallel.mesh``); the
+world size must be a multiple of K. ``--profile N`` writes a
+``torch.profiler`` trace of the first N train iterations (host and, on
+the card, device activity) to ``WORK_DIR/trace/rank{R}.json``.
 """
 from __future__ import annotations
 
@@ -61,6 +72,12 @@ def parse_args(argv=None):
     p.add_argument("--cfg-options", nargs="+", default=[],
                    help="key=value deep-merge overrides (dot keys; values "
                         "parsed as JSON where they parse)")
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="tensor-parallel size over the model mesh axis "
+                        "(overrides cfg.model_parallel; default pure DP)")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="a torch.profiler trace of N train iterations into "
+                        "WORK_DIR/trace")
     add_distributed_args(p)
     return p.parse_args(argv)
 
@@ -132,17 +149,61 @@ def _train(args, device):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(cfg_options_to_dict(args.cfg_options))
+    if args.model_parallel:
+        cfg["model_parallel"] = int(args.model_parallel)
     torch.backends.cudnn.benchmark = bool(cfg.get("cudnn_benchmark", False))
     torch.manual_seed(args.seed)
     work_dir = args.work_dir or osp.join(
         "work_dirs", osp.splitext(osp.basename(args.config))[0])
     model = build_segmentor(fill_img_size(cfg)).to(device)
+    hook = _profile_hook(args.profile, osp.join(work_dir, "trace"), device) \
+        if args.profile else None
     _, history = train_segmentor(
         model, cfg, work_dir=work_dir, device=device,
         max_iters=args.max_iters, seed=args.seed,
         resume_from=args.resume_from or cfg.get("resume_from"),
-        load_from=args.load_from or cfg.get("load_from"), log=print)
+        load_from=args.load_from or cfg.get("load_from"), log=print,
+        iter_hook=hook)
+    if hook is not None:
+        hook.close()        # a run shorter than N iterations
     return history
+
+
+def _profile_hook(n_iters, trace_dir, device):
+    """An ``iter_hook`` that profiles the first ``n_iters`` iterations the
+    loop runs and writes the trace to ``trace_dir/rank{R}.json`` (at
+    iteration ``n_iters``, or at ``close()``)."""
+    import os
+    import torch
+    from gaiaseg_tpu_torch.parallel import process_index
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    state = {}
+
+    def close():
+        if "prof" not in state or state.get("done"):
+            return
+        state["done"] = True
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        state["prof"].stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        path = osp.join(trace_dir, f"rank{process_index()}.json")
+        state["prof"].export_chrome_trace(path)
+        print(f"profiler trace of {state['iters']} iterations written to "
+              f"{path}", flush=True)
+
+    def hook(it):
+        if "prof" not in state:
+            state.update(start=it, iters=0)
+            state["prof"] = torch.profiler.profile(activities=acts)
+            state["prof"].start()
+        state["iters"] = it - state["start"]
+        if state["iters"] >= n_iters:
+            close()
+    hook.close = close
+    return hook
 
 
 if __name__ == "__main__":

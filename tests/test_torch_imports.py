@@ -80,6 +80,8 @@ SUBNET_MODULES = {
 # modules of the data-parallel slice
 PARALLEL_MODULES = {
     "gaiaseg_tpu_torch.parallel", "gaiaseg_tpu_torch.parallel.distributed",
+    "gaiaseg_tpu_torch.parallel.mesh",
+    "gaiaseg_tpu_torch.parallel.tensor_parallel",
 }
 
 
