@@ -24,6 +24,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.tracing import span
+
 
 SLOTS = 2   # pinned buffers of each name: one fills while one uploads
 
@@ -113,11 +115,18 @@ def take(tensors: Sequence[torch.Tensor],
     """Consumer side: the current stream waits for ``event`` (from
     ``DeviceFeed.done``) and owns ``tensors`` from here on; the host then
     waits until they are ready, so the wait counts as data time, not step
-    time. A no-op for CPU batches (``event`` None)."""
+    time. That wait is two spans: ``feed.wait`` until the batch's own event
+    (the feed's side stream), then ``device.drain`` until the consumer's
+    stream has finished what was queued on it before the batch (the card
+    draining the previous step). A no-op for CPU batches (``event``
+    None)."""
     if event is None:
         return
     cur = torch.cuda.current_stream(tensors[0].device)
     cur.wait_event(event)
     for t in tensors:
         t.record_stream(cur)
-    cur.synchronize()
+    with span("feed.wait"):
+        event.synchronize()
+    with span("device.drain"):
+        cur.synchronize()

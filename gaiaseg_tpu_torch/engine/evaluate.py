@@ -25,7 +25,6 @@ rank returns the one-process metrics exactly; the archs come from rank 0.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,6 +41,7 @@ from ..ops.resize import resize_bilinear
 from ..parallel.distributed import (all_reduce_sum, broadcast_object,
                                     data_parallel)
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 from .calibrate import BNStats, bn_stats, load_bn_stats
 from .numerics import autocast
 
@@ -161,16 +161,17 @@ def cross_arch_evaluate(model, val_sampler, dataset,
                         device="cuda") -> Dict[str, Dict[str, Any]]:
     """``evaluate`` at every anchor of ``val_sampler`` (the reference's
     cross-arch eval hook): ``{anchor name: metrics}``, each with its
-    ``seconds``."""
+    ``seconds`` (the span ``eval.cross_arch``)."""
     results: Dict[str, Dict[str, Any]] = {}
     for i, meta in enumerate(val_sampler.traverse()):
         meta = broadcast_object(meta)
         name = meta.get("name", val_sampler.anchor_name(i))
-        t0 = time.perf_counter()
-        metrics = evaluate(model, dataset, encode_arch(max_arch, meta),
-                           test_params=test_params, batch_size=batch_size,
-                           flip=flip, device=device)
-        metrics["seconds"] = time.perf_counter() - t0
+        with span("eval.cross_arch") as t:
+            metrics = evaluate(model, dataset, encode_arch(max_arch, meta),
+                               test_params=test_params,
+                               batch_size=batch_size, flip=flip,
+                               device=device)
+        metrics["seconds"] = t.seconds
         logger.info("cross-arch eval [%s]: mIoU=%.4f aAcc=%.4f (%.1fs)",
                     name, metrics["mIoU"], metrics["aAcc"],
                     metrics["seconds"])

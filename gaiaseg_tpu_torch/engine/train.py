@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -69,6 +70,8 @@ from ..parallel.distributed import (all_reduce_grads, barrier,
 from ..parallel.mesh import DEFAULT_MIN_SIZE, make_mesh, shard_state
 from ..parallel.tensor_parallel import sync_replicated_grads
 from ..utils.device import resolve_device
+from ..utils.tracing import (Recorder, profiling, read_allocator, set_step,
+                             span)
 from .calibrate import bn_stats, calibrate_bn, load_bn_stats
 from .checkpoint import (latest_checkpoint, load_checkpoint, save_checkpoint,
                          update_latest)
@@ -80,6 +83,20 @@ from .teacher import load_teacher_checkpoint
 
 
 logger = logging.getLogger("gaiaseg_tpu_torch")
+# the spans the log line adds up as ``upd=`` (a step) and ``feed=`` (the
+# feed thread's work, a batch)
+UPDATE_SPANS = ("train.zero_grad", "train.grad_sync", "train.zero_fill",
+                "train.clip", "train.optimizer")
+FEED_SPANS = ("feed.prep", "feed.read", "feed.params", "feed.upload",
+              "feed.augment")
+_LAST: Dict[str, Any] = {}     # the history of the latest train_segmentor
+
+
+def last_history() -> Optional[Dict[str, List[Dict[str, Any]]]]:
+    """The history of the latest ``train_segmentor`` call in this process
+    (None before any), as far as it got: its rows stay readable after the
+    loop has ended by an exception (from ``iter_hook``, say)."""
+    return _LAST.get("history")
 
 
 def prepare_batch(samples: Sequence[Dict[str, np.ndarray]],
@@ -113,25 +130,40 @@ def train_step(model, optimizer: torch.optim.Optimizer, img: torch.Tensor,
     gradient counts in the clip's norm, those the optimizer does not hold
     (frozen stages) too; a distiller's teacher takes none. Under tensor
     parallelism the replicated parameters take model index 0's gradients
-    first, and the sums run over the data axis."""
-    # across ranks the gradients start unset, so the reduction carries only
-    # those this arch reaches (elastic depth leaves whole blocks without)
-    model.zero_grad(set_to_none=data_parallel()[1] > 1)
-    params = [p for p in model.parameters() if p.requires_grad]
-    stats = contextlib.nullcontext() if update_stats \
-        else frozen_bn_stats(model)
-    with stats, autocast(img.device):
-        total, logs = model.forward_train(img, gt, arch, generator)
-    total.backward()
-    sync_replicated_grads(params)
-    all_reduce_grads(params)
-    for p in params:
-        if p.grad is None:   # outside this subnet: decay + moments only
-            p.grad = torch.zeros_like(p)
-    out = {"loss": total.detach(), **{k: v.detach() for k, v in logs.items()}}
-    if max_norm is not None:
-        out["grad_norm"] = clip_grad_norm(params, max_norm)
-    optimizer.step()
+    first, and the sums run over the data axis. Each phase is a span
+    (``train.zero_grad``, ``train.forward``, ``train.backward``,
+    ``train.grad_sync``, ``train.zero_fill``, ``train.clip``,
+    ``train.optimizer``) inside the span ``train.step``: the host's time
+    to issue it, any wait inside it included."""
+    with span("train.step"):
+        with span("train.zero_grad"):
+            # across ranks the gradients start unset, so the reduction
+            # carries only those this arch reaches (elastic depth leaves
+            # whole blocks without)
+            model.zero_grad(set_to_none=data_parallel()[1] > 1)
+            params = [p for p in model.parameters() if p.requires_grad]
+        with span("train.forward"):
+            stats = contextlib.nullcontext() if update_stats \
+                else frozen_bn_stats(model)
+            with stats, autocast(img.device):
+                total, logs = model.forward_train(img, gt, arch, generator)
+            out = {"loss": total.detach(),
+                   **{k: v.detach() for k, v in logs.items()}}
+        with span("train.backward"):
+            total.backward()
+            del total, logs     # the graph's teardown, on this span
+        with span("train.grad_sync"):
+            sync_replicated_grads(params)
+            all_reduce_grads(params)
+        with span("train.zero_fill"):
+            for p in params:
+                if p.grad is None:   # outside the subnet: decay + moments
+                    p.grad = torch.zeros_like(p)
+        if max_norm is not None:
+            with span("train.clip"):
+                out["grad_norm"] = clip_grad_norm(params, max_norm)
+        with span("train.optimizer"):
+            optimizer.step()
     return out
 
 
@@ -183,7 +215,8 @@ def base_scale_of(pipe, dataset) -> float:
 
 
 def make_train_feed(dataset, pipe, batch_size: int, num_classes: int,
-                    device: torch.device, seed: int = 0, depth: int = 4):
+                    device: torch.device, seed: int = 0, depth: int = 4,
+                    first_iter: int = 0):
     """The loop's batches: ``(img, gt, event)`` items (``staging.take``
     hands them to the consumer's stream), prepared ``depth`` ahead by a
     prefetch thread. The records come from a
@@ -202,7 +235,13 @@ def make_train_feed(dataset, pipe, batch_size: int, num_classes: int,
     and replayed for the others (fixed shapes: the loader drops the
     tail), so the thread launches a few operations a batch, not the
     augment's ~200, while the train step launches its own.
-    bf16 images on the card, float32 on the CPU."""
+    bf16 images on the card, float32 on the CPU. Each batch's work is the
+    span ``feed.prep`` of the prefetch thread, with the children
+    ``feed.read`` (the loader), ``feed.params`` (the draws),
+    ``feed.upload`` (its wait for a staging slot included) and
+    ``feed.augment`` (the graph's capture or replay, the copies out);
+    the spans carry the index of the batch, counted from ``first_iter``:
+    the iteration that consumes it."""
     cache = dataset if isinstance(dataset, DeviceCachedDataset) else None
     rank, world = data_parallel()
     rows = slice(rank * batch_size, (rank + 1) * batch_size)
@@ -228,38 +267,47 @@ def make_train_feed(dataset, pipe, batch_size: int, num_classes: int,
         return augment_batch(dev["img"], dev["gt"], dev, norm["mean"],
                              norm["std"], **kw)
 
-    def prep(batch):
-        params = draw_augment_params(gen, batch_size * world, ratio_range,
-                                     pipe.flip_prob)
-        if world > 1:
-            params = {k: v[rows] for k, v in params.items()}
-        if cache is not None:
-            arrays = {"idx": np.asarray(batch["idx"], np.int64), **params}
-        else:
-            gt = np.asarray(batch["gt"])
-            if gt.dtype != np.uint8 and num_classes <= 255:
-                gt = gt.astype(np.uint8)
-            arrays = {"img": np.asarray(batch["img"]), "gt": gt, **params}
-        with feed.side_stream():
-            if not norm:        # made once, on the stream that reads them
-                norm.update(mean=torch.tensor(pipe.mean, device=device),
-                            std=torch.tensor(pipe.std, device=device))
-            if not feed.cuda:
-                out = augment(feed.upload(arrays))
-                return out["img"], out["gt"], None
-            if not graph:       # the first batch: warm, then capture
-                static = feed.upload(arrays)
-                augment(static)
-                graph.update(zip(("graph", "out"),
-                                 feed.capture(lambda: augment(static))),
-                             static=static)
-            else:
-                feed.upload(arrays, out=graph["static"])
-            graph["graph"].replay()
-            out = graph["out"]
-            return out["img"].clone(), out["gt"].clone(), feed.done()
+    source = iter(loader)
 
-    return device_prefetch(iter(loader), prep, depth=depth)
+    def prep(step):
+        set_step(step)
+        with span("feed.prep"):
+            with span("feed.read"):
+                batch = next(source)
+            with span("feed.params"):
+                params = draw_augment_params(gen, batch_size * world,
+                                             ratio_range, pipe.flip_prob)
+                if world > 1:
+                    params = {k: v[rows] for k, v in params.items()}
+                if cache is not None:
+                    arrays = {"idx": np.asarray(batch["idx"], np.int64),
+                              **params}
+                else:
+                    gt = np.asarray(batch["gt"])
+                    if gt.dtype != np.uint8 and num_classes <= 255:
+                        gt = gt.astype(np.uint8)
+                    arrays = {"img": np.asarray(batch["img"]), "gt": gt,
+                              **params}
+            with feed.side_stream():
+                if not norm:    # made once, on the stream that reads them
+                    norm.update(mean=torch.tensor(pipe.mean, device=device),
+                                std=torch.tensor(pipe.std, device=device))
+                with span("feed.upload"):
+                    dev = feed.upload(arrays, out=graph.get("static"))
+                with span("feed.augment"):
+                    if not feed.cuda:
+                        out = augment(dev)
+                        return out["img"], out["gt"], None
+                    if not graph:   # the first batch: warm, then capture
+                        augment(dev)
+                        graph.update(zip(("graph", "out"),
+                                         feed.capture(lambda: augment(dev))),
+                                     static=dev)
+                    graph["graph"].replay()
+                    out = graph["out"]
+                    return out["img"].clone(), out["gt"].clone(), feed.done()
+
+    return device_prefetch(itertools.count(first_iter), prep, depth=depth)
 
 
 @dataclasses.dataclass
@@ -315,8 +363,12 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
       window with the mean decode loss of its full steps, the last full
       step's component losses, ``img_per_sec`` (sync to sync), the last
       step's ``arch`` and ``lr``, the window's ``data_ms`` (the loop's
-      waits for batches) and ``step_ms`` (the rest, up to the sync). At
-      interval 1 every step is a window and a synchronized full step.
+      waits for batches) and ``step_ms`` (the rest, up to the sync),
+      ``spans`` (each span's self ms a step; the feed thread's a batch),
+      ``counts`` (each counter's change a step, ``feed.batches`` the
+      batches the feed's spans cover) and ``profiled`` (a profiler
+      recorded in one of its steps). At interval 1 every step is a window
+      and a synchronized full step.
     - Val workflow: with ``workflow`` ``[('train', N), ('val', M)]`` and a
       val set, every N iterations M val batches go through
       ``forward_train`` in eval mode under ``torch.no_grad()`` at archs
@@ -423,23 +475,30 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
     generator.manual_seed(seed)
     history: Dict[str, List[Dict[str, Any]]] = {"loss": [], "eval": [],
                                                 "val_loss": []}
-    window = _Window(time.perf_counter())
+    _LAST["history"] = history
     batches = make_train_feed(train_dataset, pipe, batch_size * tp,
                               model.num_classes, device, seed,
-                              int(cfg.get("device_prefetch", 4)))
+                              int(cfg.get("device_prefetch", 4)), start)
+    # the feed's thread starts at the first batch, after the recorder
+    read_allocator(device)
+    window = _Window(time.perf_counter(), device, Recorder())
     it = start
     try:
         while it < max_iters:
             if iter_hook is not None:
                 iter_hook(it)
+            window.profiled |= profiling()
+            set_step(it)
             t0 = time.perf_counter()
-            img, gt, ready = next(batches)
-            take((img, gt), ready)
-            meta = broadcast_object(train_sampler.sample()) \
-                if train_sampler is not None else {}
-            arch = encode_arch(max_arch, meta)
-            lr = schedule(it)
-            set_learning_rate(optimizer, lr)
+            with span("feed.wait"):     # take's device.drain inside it
+                img, gt, ready = next(batches)
+                take((img, gt), ready)
+            with span("train.arch"):
+                meta = broadcast_object(train_sampler.sample()) \
+                    if train_sampler is not None else {}
+                arch = encode_arch(max_arch, meta)
+                lr = schedule(it)
+                set_learning_rate(optimizer, lr)
             t1 = time.perf_counter()
             full = (it + 1) % log_interval == 0
             logs = train_step(model, optimizer, img, gt, arch, generator,
@@ -455,30 +514,38 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
             if it % log_interval == 0:
                 row = window.close(it, log_interval * global_batch)
                 history["loss"].append(row)
+                sp = row["spans"]
                 _say(log, f"iter {it}/{max_iters} arch={row['arch']} "
                      f"loss={row['loss']:.4f} lr={row['lr']:.3e} "
                      f"{row['img_per_sec']:.1f} img/s "
                      f"step={row['step_ms']:.1f}ms "
-                     f"data={row['data_ms']:.1f}ms")
+                     f"data={row['data_ms']:.1f}ms "
+                     f"wait={sp.get('feed.wait', 0.0):.1f}ms "
+                     f"drain={sp.get('device.drain', 0.0):.1f}ms "
+                     f"fwd={sp.get('train.forward', 0.0):.1f}ms "
+                     f"bwd={sp.get('train.backward', 0.0):.1f}ms "
+                     f"upd={sum(sp.get(k, 0.0) for k in UPDATE_SPANS):.1f}ms "
+                     f"feed={sum(sp.get(k, 0.0) for k in FEED_SPANS):.1f}ms")
             calibrated = False
             if work_dir is not None and (it % ckpt_interval == 0
                                          or it == max_iters):
                 if ckpt_calib:
-                    t = time.perf_counter()
-                    calibrate(ckpt_calib)
+                    with span("train.calibrate_bn") as t:
+                        calibrate(ckpt_calib)
                     _say(log, f"calibrated BN ({ckpt_calib} batches, MAX) "
-                         f"in {time.perf_counter() - t:.4f}s")
+                         f"in {t.seconds:.4f}s")
                     calibrated = ckpt_calib >= eval_calib
                 path = osp.join(work_dir, f"iter_{it}.pth")
-                t = time.perf_counter()
-                save_checkpoint(path, model, optimizer, meta={
-                    "iter": it, "CLASSES": meta_classes,
-                    "PALETTE": getattr(train_dataset, "PALETTE", None),
-                    "max_arch": max_arch}, write=main)
+                with span("train.checkpoint") as t:
+                    save_checkpoint(path, model, optimizer, meta={
+                        "iter": it, "CLASSES": meta_classes,
+                        "PALETTE": getattr(train_dataset, "PALETTE", None),
+                        "max_arch": max_arch}, write=main)
+                    if main:
+                        update_latest(work_dir, path)
                 if main:
-                    update_latest(work_dir, path)
                     _say(log, f"saved {path} ({osp.getsize(path) / 1e6:.1f}"
-                         f" MB) in {time.perf_counter() - t:.4f}s")
+                         f" MB) in {t.seconds:.4f}s")
                 barrier()
             if val_dataset is not None and val_sampler is not None and \
                     it % eval_interval == 0:
@@ -502,6 +569,7 @@ def train_segmentor(model, cfg, *, work_dir: Optional[str] = None,
             iter_hook(it)
     finally:
         batches.close()     # stops the prefetch thread, drops staged batches
+        window.recorder.stop()
     if work_dir is not None and main:
         with open(osp.join(work_dir, "history.json"), "w") as f:
             json.dump(history, f, indent=2, default=_json_default)
@@ -516,17 +584,22 @@ def _say(log, msg: str) -> None:
 
 class _Window:
     """The loop's log window: host times, the full steps' device losses
-    (read once, at its end) and the last step's arch and LR."""
+    (read once, at its end), the last step's arch and LR, and the spans
+    and counters of its steps (``recorder``)."""
 
-    def __init__(self, t_start: float):
+    def __init__(self, t_start: float, device: torch.device,
+                 recorder: Recorder):
         self.t_last = t_start
+        self.device, self.recorder = device, recorder
         self.data_s = self.step_s = 0.0
+        self.steps, self.profiled = 0, False
         self.losses, self.comp = [], {}
 
     def step(self, data_s: float, step_s: float, logs, arch: str,
              lr: float) -> None:
         self.data_s += data_s
         self.step_s += step_s
+        self.steps += 1
         self.arch, self.lr = arch, lr
         if logs is not None:
             self.losses.append(logs["decode.loss_seg"])
@@ -537,23 +610,32 @@ class _Window:
         """Sync the device, then read the clock (JAX ``_sync_window_clock``);
         the row of the window that ends at iteration ``it``. Across ranks
         the losses are summed: each rank's is its share of the global
-        mean."""
-        t_sync = time.perf_counter()
-        names = list(self.comp)
-        vals = sum_over_ranks(torch.stack(
-            self.losses + [self.comp[k] for k in names]).float()) \
-            .cpu().tolist() if self.losses else []
-        t_now = time.perf_counter()
+        mean. The sync and the allocator's counters, read after it, are the
+        span ``train.close``; the row's ``spans`` and ``counts`` are the
+        recorder's reduction of the window (``Recorder.window``), and
+        ``profiled`` says whether a profiler recorded in any of its
+        steps."""
+        with span("train.close"):
+            t_sync = time.perf_counter()
+            names = list(self.comp)
+            vals = sum_over_ranks(torch.stack(
+                self.losses + [self.comp[k] for k in names]).float()) \
+                .cpu().tolist() if self.losses else []
+            read_allocator(self.device)
+            t_now = time.perf_counter()
         self.step_s += t_now - t_sync
+        spans, counts = self.recorder.window(it, self.steps)
         n = len(self.losses)
         row = {"iter": it,
                "loss": sum(vals[:n]) / n if n else float("nan"),
                "img_per_sec": images / max(t_now - self.t_last, 1e-9),
                **dict(zip(names, vals[n:])),
                "arch": self.arch, "lr": self.lr,
-               "data_ms": self.data_s * 1e3, "step_ms": self.step_s * 1e3}
+               "data_ms": self.data_s * 1e3, "step_ms": self.step_s * 1e3,
+               "spans": spans, "counts": counts, "profiled": self.profiled}
         self.t_last = t_now
         self.data_s = self.step_s = 0.0
+        self.steps, self.profiled = 0, False
         self.losses, self.comp = [], {}
         return row
 

@@ -63,6 +63,7 @@ from ...ops.dropout import dropout
 from ...ops.dynamic_layers import DynConv2d, DynLayerNorm, DynLinear
 from ...parallel.tensor_parallel import copy_to_model, row_linear
 from ...utils.registry import BACKBONES
+from ...utils.tracing import region
 
 HEAD_DIM = 64   # fixed head width; heads are elastic
 
@@ -269,13 +270,15 @@ class ElasticMHA(nn.Module):
     def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 rel_index) -> torch.Tensor:
         """Attention of ``q``, ``k``, ``v`` ``[B, N, h, 64]`` -> ``[B, N,
-        h, 64]``: the flash kernels under the gate, else dense."""
+        h, 64]``: the flash kernels under the gate, else dense (the range
+        and counter ``attention.flash`` or ``attention.dense``)."""
         n = q.shape[1]
         scale = 1.0 / math.sqrt(HEAD_DIM)
         rel = self.rel_pos_embed_k is not None and rel_index is not None
         if self.use_flash and q.is_cuda and n % 128 == 0 and not rel:
-            out = flash_attention(q * scale, k, v)
-        else:
+            with region("attention.flash"):
+                return flash_attention(q * scale, k, v)
+        with region("attention.dense"):
             # float32 logits and softmax (float64 for float64 inputs)
             wide = torch.promote_types(q.dtype, torch.float32)
             logits = torch.einsum("bnhd,bmhd->bhnm", q, k).to(wide) * scale
@@ -286,7 +289,7 @@ class ElasticMHA(nn.Module):
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
             if rel:
                 out = out + self.rel_pos_embed_v.values(attn, rel_index)
-        return out
+            return out
 
 
 class ElasticEncoderLayer(nn.Module):

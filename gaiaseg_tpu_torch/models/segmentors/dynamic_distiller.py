@@ -32,6 +32,7 @@ from torch import nn
 
 from ...ops.resize import resize_bilinear
 from ...utils.registry import SEGMENTORS
+from ...utils.tracing import region
 from ..arch_util import backbone_max_arch
 from ..builder import build_backbone, build_head, build_neck
 from ..losses.cross_entropy import distill_softened_ce, pairwise_gram_loss
@@ -88,8 +89,9 @@ class DynamicDistiller(DynamicEncoderDecoder):
                         ) -> Tuple[List[torch.Tensor],
                                    Optional[torch.Tensor]]:
         """The frozen teacher's features and logits (JAX ``teacher_forward``)
-        in eval mode, under a profiler range of that name."""
-        with torch.profiler.record_function("teacher_forward"):
+        in eval mode, under a profiler range of that name (a
+        ``tracing.region``: entered only while a profiler records)."""
+        with region("teacher_forward"):
             feats = self.t_backbone(img, self.teacher_arch)
             if self.t_neck is not None:
                 feats = self.t_neck(feats)

@@ -18,6 +18,7 @@ from torch import nn
 from ...ops.cuda.resize_ce import fused_resize_ce, supports_fused_resize_ce
 from ...ops.resize import resize_bilinear
 from ...utils.registry import SEGMENTORS
+from ...utils.tracing import region
 from ..builder import build_backbone, build_head, build_loss, build_neck
 from ..losses.cross_entropy import CrossEntropyLoss
 from ..losses.dice_focal import pixel_accuracy
@@ -147,7 +148,8 @@ class DynamicEncoderDecoder(nn.Module):
                   ) -> torch.Tensor:
         """``loss_fn`` of the logits resized to label size: a plain CE
         through ``fused_resize_ce`` when its gate passes, any other loss
-        unfused. A loss that draws (EQL) gets ``generator``."""
+        unfused, under the range and counter ``loss.fused`` or
+        ``loss.unfused``. A loss that draws (EQL) gets ``generator``."""
         plain_ce = (isinstance(loss_fn, CrossEntropyLoss)
                     and not loss_fn.use_sigmoid
                     and loss_fn.class_weight is None
@@ -156,10 +158,12 @@ class DynamicEncoderDecoder(nn.Module):
         if self.fused_loss is not False and plain_ce and \
                 supports_fused_resize_ce(tuple(logit.shape[2:]), label_hw,
                                          self.align_corners):
-            return loss_fn.loss_weight * fused_resize_ce(logit, gt, label_hw,
-                                                         255)
-        up = resize_bilinear(logit, label_hw, self.align_corners)
-        return _call_loss(loss_fn, up, gt, generator)
+            with region("loss.fused"):
+                return loss_fn.loss_weight * fused_resize_ce(logit, gt,
+                                                             label_hw, 255)
+        with region("loss.unfused"):
+            up = resize_bilinear(logit, label_hw, self.align_corners)
+            return _call_loss(loss_fn, up, gt, generator)
 
     # ------------------------------------------------------------------ #
     def _check_eval(self) -> None:

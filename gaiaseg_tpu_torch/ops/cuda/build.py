@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+from ...utils.tracing import counters
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -29,9 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 # launches of each kernel since the last reset, counted by its wrapper where
-# it launches
-LAUNCHES = {"resize_ce_fwd": 0, "resize_ce_bwd": 0, "flash_fwd": 0,
-            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+# it launches: the tracer's counter group ``launch``
+LAUNCHES = counters("launch", ("resize_ce_fwd", "resize_ce_bwd", "flash_fwd",
+                               "flash_bwd_dkv", "flash_bwd_dq"))
 
 
 def reset_launches() -> None:

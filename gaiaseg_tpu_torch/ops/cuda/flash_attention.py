@@ -32,8 +32,9 @@ from typing import Tuple
 
 import torch
 
+from ...utils.tracing import count
 from . import build
-from .build import LAUNCHES
+from .build import LAUNCHES  # noqa: F401  (re-exported)
 
 HEAD_DIM = 64
 TILE_ROWS = 64      # rows of one staged tile (a TMA box of the bf16 kernels)
@@ -192,7 +193,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                l.data_ptr(), b, n, h, _strides(q, k, v),
                                torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    count("launch.flash_fwd")
     return o, m, l
 
 
@@ -213,7 +214,7 @@ def flash_bwd_dkv(q, k, v, do, m, l, di) -> Tuple[torch.Tensor, torch.Tensor]:
             dk.data_ptr(), dv.data_ptr(), b, n, h, _strides(q, k, v, do),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    count("launch.flash_bwd_dkv")
     return dk, dv
 
 
@@ -233,7 +234,7 @@ def flash_bwd_dq(q, k, v, do, m, l, di) -> torch.Tensor:
             dq.data_ptr(), b, n, h, _strides(q, k, v, do),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    count("launch.flash_bwd_dq")
     return dq
 
 

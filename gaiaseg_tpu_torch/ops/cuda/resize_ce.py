@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ...parallel.distributed import sum_over_ranks
+from ...utils.tracing import count
 from . import build
 from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 
@@ -201,7 +202,7 @@ def resize_ce_sums(mid: torch.Tensor, label: torch.Tensor, out_h: int,
                                 sums.data_ptr(), n, h, c, w, f, ignore_index,
                                 stream)
     _raise_on(err, "resize_ce_fwd")
-    LAUNCHES["resize_ce_fwd"] += 1
+    count("launch.resize_ce_fwd")
     return sums[0], sums[1]
 
 
@@ -230,7 +231,7 @@ def resize_ce_grad_mid(mid: torch.Tensor, label: torch.Tensor,
                                    w, f, ignore_index,
                                    torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "resize_ce_bwd")
-    LAUNCHES["resize_ce_bwd"] += 1
+    count("launch.resize_ce_bwd")
     return gmid
 
 

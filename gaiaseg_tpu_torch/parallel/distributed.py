@@ -52,6 +52,8 @@ from typing import Any, Iterable, Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..utils.tracing import count, counters
+
 DEFAULT_TIMEOUT_S = 1800.0
 # coalesced gradient buckets: a few collectives a step (the flagship has
 # 400+ parameter tensors), none above 64 MB of float32
@@ -61,9 +63,10 @@ BUCKET_ELEMS = 1 << 24
 _objects_group = None   # the host group that carries objects under nccl
 _local_depth = 0        # > 0 inside local_only()
 _axes = None            # MeshAxes of a data x model mesh with K > 1
-# bytes each axis's tensor collectives have moved (a rank's input sizes),
-# for the readings of a step; ``reset_traffic`` sets them to 0
-TRAFFIC = {"data": 0, "model": 0}
+# bytes each axis's tensor collectives have moved (a rank's input sizes):
+# the tracer's counter group ``collective.bytes``; ``reset_traffic`` sets
+# them to 0
+TRAFFIC = counters("collective.bytes", ("data", "model"))
 
 
 def reset_traffic() -> None:
@@ -235,7 +238,8 @@ def _on_backend(t: torch.Tensor) -> torch.Tensor:
 
 
 def _reduce(tensor: torch.Tensor, group, axis: str = "data") -> torch.Tensor:
-    TRAFFIC[axis] += tensor.numel() * tensor.element_size()
+    count(f"collective.bytes.{axis}",
+          tensor.numel() * tensor.element_size())
     work = _on_backend(tensor)
     dist.all_reduce(work, op=dist.ReduceOp.SUM, group=group)
     if work is not tensor:
@@ -304,7 +308,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> int:
 
 def _broadcast(flat: torch.Tensor, src: int, group,
                axis: str = "data") -> None:
-    TRAFFIC[axis] += flat.numel() * flat.element_size()
+    count(f"collective.bytes.{axis}", flat.numel() * flat.element_size())
     work = _on_backend(flat)
     dist.broadcast(work, src=src, group=group)
     if work is not flat:

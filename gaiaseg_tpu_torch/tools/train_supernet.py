@@ -45,7 +45,10 @@ history and the log lines. ``--model-parallel K`` (the config's
 shards the parameters over groups of K ranks (``parallel.mesh``); the
 world size must be a multiple of K. ``--profile N`` writes a
 ``torch.profiler`` trace of the first N train iterations (host and, on
-the card, device activity) to ``WORK_DIR/trace/rank{R}.json``.
+the card, device activity) to ``WORK_DIR/trace/rank{R}.json``; the
+program's spans (``utils/tracing.py``: ``train.forward``,
+``device.drain``, ``feed.prep``, ``loss.fused``, ...) are ranges in it,
+on the clock of the card's kernels.
 """
 from __future__ import annotations
 
