@@ -190,10 +190,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 18. convnext  K1 and K2 at this path's loss shapes (150 classes: decode
             128x128, aux 32x32 -> 512x512, the any-C instances) against
             their plain versions in float32 and bf16, each twice
-            bit-equal, and their times; the ConvNeXt-T supernet
-            (``DynamicConvNeXt`` defaults: dims 96/192/384/768, depths
-            3/3/9/3, drop path 0.4) + UPer 512 (pool scales 1/2/3/6) + FCN
-            aux 256 on stage 2, 150 classes, on
+            bit-equal, and their times; K2 alone at the ViT benchmark
+            cell's two losses (batch 16) and at 21, 59 and 171 classes at
+            its decode shape, beside the kernel it replaced; the
+            ConvNeXt-T supernet (``DynamicConvNeXt`` defaults: dims
+            96/192/384/768, depths 3/3/9/3, drop path 0.4) + UPer 512 (pool
+            scales 1/2/3/6) + FCN aux 256 on stage 2, 150 classes, on
             ``configs/tests/tiny_convnext_uper.py``'s structure (AdamW +
             clip 5), synthetic 512x512 records kept on the card through
             ADE20K's train pipeline, batch 8: one sandwich cycle (MAX, MIN
@@ -3635,6 +3637,19 @@ CONFORMER_MIN = {"stem": 32, "widths": [128, 256, 512], "depths": [2, 2, 2],
 # 32x32 (stage 2, stride 16) upsampled to the 512x512 labels
 ADE_LOSSES = {"c150_decode": (8, 150, 128, 128, 512, 512),
               "c150_aux": (8, 150, 32, 32, 512, 512)}
+# K2's any-C instance at the ViT benchmark cell's two losses (batch 16) and
+# at 21, 59 and 171 classes at its decode shape; beside each, the ms a
+# launch of the any-C K2 it replaced (accumulators in shared memory, three
+# passes over the classes), L2 flushed: the median of four turns' medians
+# of 30, timed in turns with this one by tools/compare_resize_ce_builds on
+# an H100 80GB HBM3 at 700 W
+K2_ANY_TIMED = {"vit_decode150": (16, 150, 128, 128, 512, 512),
+                "vit_aux150": (16, 150, 32, 32, 512, 512),
+                "c21": (16, 21, 128, 128, 512, 512),
+                "c59": (16, 59, 128, 128, 512, 512),
+                "c171": (16, 171, 128, 128, 512, 512)}
+K2_ANY_BEFORE_MS = {"vit_decode150": 8.3512, "vit_aux150": 7.4188,
+                    "c21": 0.3838, "c59": 1.8673, "c171": 13.9898}
 
 
 def _ade_train(cfg, classes):
@@ -3934,6 +3949,27 @@ def _train_backbone_path(ctx, tag, cfg, names, describe):
     ctx[tag] = out
 
 
+def _time_k2_any(name, shape):
+    """K2 alone at ``shape``: ms a launch (L2 flushed, median) beside its
+    bound and the replaced kernel's ms (``K2_ANY_BEFORE_MS``)."""
+    import torch
+    from gaiaseg_tpu_torch.ops.cuda import resize_ce as rc
+    n, c, h, w, H, W = shape
+    logits, label = _inputs(shape, torch.float32, seed=7)
+    mid = rc.width_interp(logits, W)
+    scale = (1.0 / (label != 255).sum().clamp_min(1).float()).reshape(1)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    row = dict(ms=_time_ms(lambda: rc.resize_ce_grad_mid(mid, label, scale,
+                                                         H), flush),
+               before_ms=K2_ANY_BEFORE_MS[name], **_bound(mid, label, False))
+    row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    print(f"[convnext] K2 {name:<13} {list(shape)}: {row['ms']:.4f} ms a "
+          f"launch, the replaced kernel {row['before_ms']:.4f} ms "
+          f"({row['before_ms'] / row['ms']:.2f}x) | bound {row['bound_ms']:.4f}"
+          f" ms ({100 * row['bound_ms'] / row['ms']:.1f}%)")
+    return row
+
+
 def phase_convnext(ctx):
     import torch
     errs = {"resize_ce_fwd": 0.0, "resize_ce_bwd": 0.0}
@@ -3942,12 +3978,14 @@ def phase_convnext(ctx):
         for dtype in (torch.float32, torch.bfloat16):
             _check_case(name, shape, dtype, seed=1, errs=errs, log=checks)
         _time_case(name, shape, timings)
+    k2_any = {name: _time_k2_any(name, shape)
+              for name, shape in K2_ANY_TIMED.items()}
     _train_backbone_path(
         ctx, "convnext", _convnext_cfg(), ["MAX", "MIN", "random", "random"],
         "ConvNeXt-T supernet (dims 96/192/384/768, depths 3/3/9/3, drop "
         "path 0.4) + UPer 512 + FCN aux 256, 150 classes, AdamW + clip 5")
     ctx["convnext"].update(kernel_checks=checks, kernel_timings=timings,
-                           max_abs_err=errs)
+                           k2_any_timings=k2_any, max_abs_err=errs)
 
 
 def phase_conformer(ctx):

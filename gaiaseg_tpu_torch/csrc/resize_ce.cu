@@ -52,8 +52,9 @@
 // sets the ticket back to 0: one launch. The workspace lives with the
 // caller, one per stream.
 //
-// K2 layout. R a divisor of h, at most 8, and RY up to min(8, f); thread
-// (x, ry) works through each of the R + 1 intervals that touch the tile. Each
+// K2 layout, C = 19 (bwd_tile). R a divisor of h, at most 8, and RY up to
+// min(8, f); thread (x, ry) works through each of the R + 1 intervals that
+// touch the tile. Each
 // pixel's softmax is computed once (max, sum and P in one go); (1-w) d and w
 // d are added into the thread's own per-class accumulators for the
 // interval's lower and upper mid row. The upper row of interval j is the
@@ -63,11 +64,20 @@
 // the block adds them in the fixed order ry = 0, 1, .. and writes the row
 // coalesced. Only the two intervals on a tile's row border are evaluated by
 // two blocks: (R + 1) / R of the exponentials, none twice when R = h.
-// Ignored pixels skip the exponentials. Two instances: C = 19 with the
-// classes unrolled in registers (bwd_tile), and any C up to 256 with the
-// accumulators in shared memory and the classes walked in three passes (max,
-// sum, accumulate) from the cached mid rows (bwd_tile_any), so 150 classes
-// run without spills.
+// Ignored pixels skip the exponentials. The classes are unrolled in
+// registers.
+//
+// K2 layout, any other C up to 256 (bwd_tile_any; the comment above it has
+// the steps). A tile of R mid rows (a divisor of h, at most 32) by 32
+// columns; its mid rows and labels are staged in shared memory by cp.async
+// two steps ahead, each mid row crossing HBM once a tile. A pixel's
+// logsumexp comes from one pass over the staged taps (its sums taken against
+// one of its own classes, split over up to 8 lanes and merged by shuffles),
+// then each warp walks the interval's rows for its own classes of the tile's
+// columns, with the taps and the two row adjoints in registers: no
+// shared-memory accumulators, no reduction across lanes. 2C exponentials a
+// pixel, 16 warps an SM at 150 classes (8-warp blocks, two an SM; 16-warp
+// blocks above 152 classes).
 //
 // What bounds them on the H100. At the flagship loss (batch 8, 512x1024
 // labels, C = 19) the function reads ~10-20 MB of mid plus 16.8 MB of int32
@@ -81,7 +91,14 @@
 // more independent work a thread (more registers, fewer warps) measured
 // faster (PERF.md, PR 5). K2's ~10 instructions per class and pixel (blend,
 // max, exp2, sum, the label's class, two adjoint FMAs) on the CUDA cores are
-// its real floor, ~30 us at full issue rate.
+// its real floor, ~30 us at full issue rate. At 150 classes (the ViT's
+// losses, batch 16 of 512x512 labels) the any-C K2 reads 629 MB of mid (f =
+// 4) or 157 MB (f = 16) and writes as much of gmid (0.38 / 0.10 ms at 3.35
+// TB/s) and takes 2 x 150 ex2 for each of 3.8 M valid pixels, on the SFUs
+// ~0.3 ms at 1.755 GHz whatever f: the decode loss sits between bytes and
+// SFU, the aux loss on the SFU. It measured 1.07 / 0.72 ms a launch (36% /
+// 17% of the bound): by instruction count near half the issue rate, the
+// rest latency (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -96,7 +113,14 @@ constexpr int kMaxLanes = 8;   // most row lanes (warps) of a block
 constexpr int kRegClasses = 19;  // the instances with classes in registers
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kAnySmemBudget = 96 * 1024;  // bwd_tile_any's accumulators
+// bwd_tile_any: most output rows a step, most mid rows a tile, steps its
+// copies run ahead, independent partial sums a lane in phase A, and the
+// log2 headroom of those sums
+constexpr int kAnyRows = 32;
+constexpr int kAnyTileRows = 32;
+constexpr int kAnyAhead = 2;
+constexpr int kAnyChains = 4;
+constexpr float kAnyLazy = 64.f;
 constexpr int kFwdLanes = 4;   // K1: most row lanes of a block
 constexpr int kFwdRows = 16;   // K1: output rows a thread takes in a tile
 // K1's workspace, in 32-bit words: the ticket, a pad word (the slots start
@@ -128,6 +152,31 @@ __device__ __forceinline__ float upper_weight(int Y, int j, int f) {
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// cp.async into shared memory: 16 bytes (both addresses 16-byte aligned,
+// past L1) or 4 bytes; a thread's copies since the last commit form a group
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   hopper::smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   hopper::smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// this thread's copies but those of its last N groups have landed (others'
+// need a __syncthreads after)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // One mid row's C taps of a column into registers (coalesced across the
@@ -510,63 +559,238 @@ bwd_tile(const float* __restrict__ mid, const int* __restrict__ label,
   }
 }
 
-// The same tiling for any C <= 256: a thread's two accumulators live in
-// shared memory, acc[which][c][ry][x] (the layout reduce_lanes reads), and a
-// pixel's classes are walked three times from the cached mid rows.
-__global__ void __launch_bounds__(kCols * kMaxLanes)
+// K2 for any C <= 256 (bwd_tile_any). A block of NW warps owns a tile of R
+// mid rows by 32 columns and walks the R + 1 intervals that touch it, in
+// steps of at most kAnyRows output rows. Shared memory holds a ring of
+// kAnyAhead + 2 mid rows ([NW K][32] floats each, the classes from C on
+// unused) and one of kAnyAhead + 1 steps' labels, filled by cp.async
+// kAnyAhead steps before they are used, and the step's softmax statistics.
+// A step:
+//   wait for its copies, sync; copy the labels kAnyAhead steps on (and, at
+//   an interval's first step, its new mid row); phase A; sync; phase B.
+// Phase A, per output pixel of the step, one pass over the staged taps: the
+// logsumexp of the classes, split over S lanes of a warp (classes c = k mod
+// S on lane slice k) and merged by shuffles; slice 0 keeps it (log2 units)
+// in shared memory. Class c's columns are stored at x ^ (c mod S) * (32 /
+// S), so the S slices of a warp read distinct banks. Phase B: warp g owns
+// classes g, g + NW, .. (K of them) of the tile's 32 columns, with their two
+// taps in registers (log2 units: a the lower row, d upper - lower), and
+// walks the step's rows: p = 2^(a + w d - lse) - onehot, added times (1 - w)
+// scale and w scale into two register accumulators, the lower and the upper
+// mid row's. After interval j, mid row j is complete in the lower ones:
+// written coalesced from registers; the upper ones carry to interval j + 1.
+template <int NW, int K, int MinBlocks>
+__global__ void __launch_bounds__(kCols * NW, MinBlocks)
 bwd_tile_any(const float* __restrict__ mid, const int* __restrict__ label,
              const float* __restrict__ scale_ptr, float* __restrict__ gmid,
-             int h, int C, int W, int f, int R, int ignore_index) {
-  extern __shared__ float acc[];
-  const int x0 = blockIdx.x * kCols, X = x0 + threadIdx.x;
-  const int ry = threadIdx.y, lanes = blockDim.y;
+             int h, int C, int W, int f, int R, int slice_log2, bool vec,
+             int ignore_index) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x, g = threadIdx.y;
+  const int tid = g * kCols + lane, threads = kCols * NW;
+  const int x0 = blockIdx.x * kCols;
   const int r0 = blockIdx.y * R, r1 = r0 + R, n = blockIdx.z;
-  const int H = h * f;
-  const bool live = X < W;
-  const int Xc = min(X, W - 1);
-  const float scale = *scale_ptr;
-  const int* lab_col = label + (size_t)n * H * W + Xc;
-  const int stride = lanes * kCols;      // between classes
-  float* cur = acc + ry * kCols + threadIdx.x;
-  float* nxt = cur + C * stride;
-  for (int c = 0; c < C; ++c) cur[c * stride] = nxt[c * stride] = 0.f;
-  for (int j = r0 - 1; j < r1; ++j) {
+  const int H = h * f, tile = NW * K * kCols;
+  const int S = 1 << slice_log2, cw = kCols >> slice_log2;
+  constexpr int ring = kAnyAhead + 2, lab_ring = kAnyAhead + 1;
+  const int rows_max = min(f, kAnyRows);
+  float* rows = smem;                                      // [ring][NW K][32]
+  int* labs = reinterpret_cast<int*>(rows + ring * tile);  // [lab_ring][..]
+  float* lse = reinterpret_cast<float*>(labs + lab_ring * rows_max * kCols);
+  const float scale = *scale_ptr, inv_f = 1.f / f;
+  const bool live = x0 + lane < W;
+
+  // copies of mid row `row` and of step (jj, qq)'s label rows
+  auto stage_row = [&](int row) {
+    float* dst = rows + (row % ring) * tile;
+    const float* src = mid + ((size_t)(n * h + row) * C) * W + x0;
+    const int per = vec ? kCols / 4 : kCols, w = vec ? 4 : 1;
+    for (int i = tid; i < C * per; i += threads) {
+      const int c = i / per, x = (i % per) * w;
+      if (x0 + x >= W) continue;
+      float* d = dst + c * kCols + (x ^ ((c & (S - 1)) * cw));
+      if (vec)
+        cp_async16(d, src + (size_t)c * W + x);
+      else
+        cp_async4(d, src + (size_t)c * W + x);
+    }
+  };
+  auto issue = [&](int jj, int qq, int slot) {
+    if (qq == 0 && jj >= 0 && jj + 1 < h) stage_row(jj + 1);
+    const Interval v = interval(jj, h, f);
+    const int ya = v.y0 + qq * rows_max, yb = min(ya + rows_max, v.y1);
+    int* dst = labs + slot * rows_max * kCols;
+    const int* src = label + ((size_t)n * H + ya) * W + x0;
+    const int per = vec ? kCols / 4 : kCols, w = vec ? 4 : 1;
+    for (int i = tid; i < (yb - ya) * per; i += threads) {
+      const int y = i / per, x = (i % per) * w;
+      if (x0 + x >= W) continue;
+      if (vec)
+        cp_async16(dst + y * kCols + x, src + (size_t)y * W + x);
+      else
+        cp_async4(dst + y * kCols + x, src + (size_t)y * W + x);
+    }
+  };
+  // the step after (jj, qq)
+  auto advance = [&](int& jj, int& qq) {
+    const Interval v = interval(jj, h, f);
+    if (v.y0 + (qq + 1) * rows_max >= v.y1) {
+      ++jj;
+      qq = 0;
+    } else {
+      ++qq;
+    }
+  };
+
+  float a[K], d[K], cur[K], nxt[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) cur[k] = nxt[k] = 0.f;
+
+  int j = r0 - 1, q = 0;       // the step computed
+  int ji = j, qi = 0;          // the step copied
+  stage_row(max(j, 0));
+  for (int t = 0; t < kAnyAhead; ++t) {
+    if (ji < r1) {
+      issue(ji, qi, t);
+      advance(ji, qi);
+    }
+    cp_async_commit();
+  }
+  for (int step = 0; j < r1; ++step) {
     const Interval iv = interval(j, h, f);
-    const float* a = mid + ((size_t)(n * h + iv.lo) * C) * W + Xc;
-    const float* b = mid + ((size_t)(n * h + iv.hi) * C) * W + Xc;
-    for (int Y = iv.y0 + ry; live && Y < iv.y1; Y += lanes) {
-      const int lab = lab_col[(size_t)Y * W];
-      if (lab == ignore_index) continue;
-      const float w = upper_weight(Y, j, f);
-      float m = -INFINITY;
-      for (int c = 0; c < C; ++c)
-        m = fmaxf(m, blend(a, b, c, W, w));
-      const float ml = m * kLog2e;
-      float s = 0.f;
-      for (int c = 0; c < C; ++c)
-        s += exp2_approx(fmaf(blend(a, b, c, W, w), kLog2e, -ml));
-      const float inv = scale / s;
-      const float wh = w * inv, wl = inv - wh;
-      for (int c = 0; c < C; ++c) {
-        float e = exp2_approx(fmaf(blend(a, b, c, W, w), kLog2e, -ml));
-        if (c == lab) e -= s;
-        cur[c * stride] = fmaf(wl, e, cur[c * stride]);
-        nxt[c * stride] = fmaf(wh, e, nxt[c * stride]);
+    const int ya = iv.y0 + q * rows_max, yb = min(ya + rows_max, iv.y1);
+    cp_async_wait<kAnyAhead - 1>();
+    __syncthreads();
+    if (ji < r1) {
+      issue(ji, qi, (step + kAnyAhead) % lab_ring);
+      advance(ji, qi);
+    }
+    cp_async_commit();
+    const float* lo = rows + (iv.lo % ring) * tile;
+    const float* hi = rows + (iv.hi % ring) * tile;
+    const int* lab_s = labs + (step % lab_ring) * rows_max * kCols;
+
+    // phase A: a step row's 32 pixels in S column blocks of cw, a warp one
+    // (row, block) at a time, lane slice k taking the classes c = k mod S
+    {
+      const int k = lane / cw, xo = lane % cw;
+      for (int u = g; u < (yb - ya) << slice_log2; u += NW) {
+        const int y = u >> slice_log2, xb = u & (S - 1);
+        const int x = xb * cw + xo;
+        const int lab = x0 + x < W ? lab_s[y * kCols + x] : ignore_index;
+        const bool valid = lab != ignore_index;
+        float m = -INFINITY, s = 0.f;
+        if (valid) {
+          const float w =
+              fmaf((float)(ya + y) + 0.5f, inv_f, -0.5f - (float)j);
+          const float wh = w * kLog2e, wl = kLog2e - wh;
+          const float* pa = lo + ((xb ^ k) * cw + xo);
+          const float* pb = hi + ((xb ^ k) * cw + xo);
+          // the sums are taken against m, one of the pixel's classes (so
+          // m <= the max and the largest term >= 1), moved up only where a
+          // class lies more than 2^kAnyLazy above it: no rescale a class
+          auto u_of = [&](int c) {
+            return fmaf(pb[c * kCols], wh, pa[c * kCols] * wl);
+          };
+          m = u_of(k);
+          float sc[kAnyChains];
+          sc[0] = 1.f;
+#pragma unroll
+          for (int i = 1; i < kAnyChains; ++i) sc[i] = 0.f;
+          int c = k + S;
+          for (; c + (kAnyChains - 1) * S < C; c += kAnyChains * S) {
+            float u[kAnyChains];
+            float top = -INFINITY;
+#pragma unroll
+            for (int i = 0; i < kAnyChains; ++i) {
+              u[i] = u_of(c + i * S);
+              top = fmaxf(top, u[i]);
+            }
+            if (top - m > kAnyLazy) {
+#pragma unroll
+              for (int i = 0; i < kAnyChains; ++i)
+                sc[i] *= exp2_approx(m - top);
+              m = top;
+            }
+#pragma unroll
+            for (int i = 0; i < kAnyChains; ++i)
+              sc[i] += exp2_approx(u[i] - m);
+          }
+          for (; c < C; c += S) {
+            const float u = u_of(c);
+            if (u - m > kAnyLazy) {
+              sc[0] *= exp2_approx(m - u);
+              sc[0] += 1.f;
+#pragma unroll
+              for (int i = 1; i < kAnyChains; ++i)
+                sc[i] *= exp2_approx(m - u);
+              m = u;
+            } else {
+              sc[0] += exp2_approx(u - m);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kAnyChains; ++i) s += sc[i];
+        }
+        for (int o = cw; o < kCols; o <<= 1) {   // merge the slices
+          const float mo = __shfl_xor_sync(0xffffffffu, m, o);
+          const float so = __shfl_xor_sync(0xffffffffu, s, o);
+          if (valid) {
+            const float mm = fmaxf(m, mo);
+            s = s * exp2_approx(m - mm) + so * exp2_approx(mo - mm);
+            m = mm;
+          }
+        }
+        if (valid && k == 0) lse[y * kCols + x] = m + log2_approx(s);
       }
     }
-    if (j == h - 1)
-      for (int c = 0; c < C; ++c) cur[c * stride] += nxt[c * stride];
-    if (j >= r0)
-      reduce_lanes(cur - (ry * kCols + threadIdx.x), C, lanes,
-                   gmid + ((size_t)(n * h + j) * C) * W, W, x0);
-    // the upper row becomes the lower one; j = -1 keeps its sums with row 0
-    for (int c = 0; c < C; ++c) {
-      if (j < 0) nxt[c * stride] += cur[c * stride];
-      cur[c * stride] = 0.f;
+    __syncthreads();
+
+    // phase B: warp g's classes (those from C on read unused rows of the
+    // ring and are never written), the step's rows in order
+    if (q == 0) {                            // the interval's taps
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int c = g + NW * k;
+        const int i = c * kCols + (lane ^ ((c & (S - 1)) * cw));
+        a[k] = lo[i] * kLog2e;
+        d[k] = hi[i] * kLog2e - a[k];
+      }
     }
-    float* swap = cur;
-    cur = nxt;
-    nxt = swap;
+    for (int y = 0; live && y < yb - ya; ++y) {
+      const int lab = lab_s[y * kCols + lane];
+      if (lab == ignore_index) continue;
+      const float l = lse[y * kCols + lane];
+      const float w = fmaf((float)(ya + y) + 0.5f, inv_f, -0.5f - (float)j);
+      const float wh = w * scale, wl = scale - wh;
+      const int own = lab - g;               // onehot at k with NW k == own
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float p = exp2_approx(fmaf(w, d[k], a[k]) - l);
+        if (own == NW * k) p -= 1.f;
+        cur[k] = fmaf(wl, p, cur[k]);
+        nxt[k] = fmaf(wh, p, nxt[k]);
+      }
+    }
+    if (yb == iv.y1) {                       // the interval's last step
+      if (j == h - 1) {                      // both taps on row h - 1
+#pragma unroll
+        for (int k = 0; k < K; ++k) cur[k] += nxt[k];
+      }
+      if (j >= r0 && live) {                 // mid row j is complete
+        float* out = gmid + ((size_t)(n * h + j) * C) * W + x0 + lane;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (g + NW * k < C) out[(size_t)(g + NW * k) * W] = cur[k];
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        // j = -1 has both taps on row 0: its lower-row sums stay with row 0
+        cur[k] = j < 0 ? cur[k] + nxt[k] : nxt[k];
+        nxt[k] = 0.f;
+      }
+    }
+    advance(j, q);
   }
 }
 
@@ -597,6 +821,57 @@ Tiling fwd_tiling(int h, int f) {
 bool shapes_ok(int n, int h, int C, int W, int f) {
   return n > 0 && n <= 65535 && h >= 3 && h < 65535 && C > 0 && C <= 256 &&
          W > 0 && f >= 2 && f % 2 == 0;
+}
+
+
+// bwd_tile_any's launch: the tile's mid rows R from h (the largest divisor
+// up to kAnyTileRows: (R + 1) / R of the exponentials), the slices S of
+// phase A from f, so that a step's rows x S fill the warps (S <= 8, S <= C)
+template <int NW, int K, int MinBlocks>
+int launch_bwd_any_as(const float* mid, const int* label, const float* scale,
+                      float* gmid, int n, int h, int C, int W, int f,
+                      int ignore_index, cudaStream_t s) {
+  const int rows_max = min(f, kAnyRows);
+  int R = 1;
+  for (int r = 2; r <= kAnyTileRows; ++r)
+    if (h % r == 0) R = r;
+  int slice_log2 = 0;
+  while ((2 << slice_log2) * rows_max <= NW && (2 << slice_log2) <= C &&
+         (2 << slice_log2) <= 8)
+    ++slice_log2;
+  const bool vec = W % 4 == 0 && (uintptr_t)mid % 16 == 0 &&
+                   (uintptr_t)label % 16 == 0;
+  // the mid-row ring, the label ring and the step's statistics
+  const int smem = ((kAnyAhead + 2) * NW * K + (kAnyAhead + 2) * rows_max) *
+                   kCols * (int)sizeof(float);
+  auto kernel = bwd_tile_any<NW, K, MinBlocks>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + kCols - 1) / kCols, h / R, n);
+  kernel<<<grid, dim3(kCols, NW), smem, s>>>(mid, label, scale, gmid, h, C,
+                                             W, f, R, slice_log2, vec,
+                                             ignore_index);
+  return (int)cudaGetLastError();
+}
+
+// the instance: NW warps and K classes a thread, the least NW K >= C among
+// them (8 warps up to 152 classes, 16 above); blocks an SM by registers
+int launch_bwd_any(const float* mid, const int* label, const float* scale,
+                   float* gmid, int n, int h, int C, int W, int f,
+                   int ignore_index, cudaStream_t s) {
+#define ANY_CASE(NW, K, B)                                                   \
+  if (C <= NW * K)                                                           \
+    return launch_bwd_any_as<NW, K, B>(mid, label, scale, gmid, n, h, C, W, \
+                                       f, ignore_index, s);
+  ANY_CASE(8, 3, 4)
+  ANY_CASE(8, 8, 3)
+  ANY_CASE(8, 12, 2)
+  ANY_CASE(8, 19, 2)
+  ANY_CASE(16, 11, 1)
+  ANY_CASE(16, 16, 1)
+#undef ANY_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -644,16 +919,8 @@ int resize_ce_bwd(const float* mid, const int* label, const float* scale,
         mid, label, scale, gmid, h, W, f, t.R, ignore_index);
     return (int)cudaGetLastError();
   }
-  // two accumulators a thread and class: fewer row lanes where C is large
-  while (t.lanes > 1 && 2 * C * t.lanes * kCols * 4 > kAnySmemBudget)
-    t.lanes /= 2;
-  const int smem = 2 * C * t.lanes * kCols * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      bwd_tile_any, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  bwd_tile_any<<<grid, dim3(kCols, t.lanes), smem, s>>>(
-      mid, label, scale, gmid, h, C, W, f, t.R, ignore_index);
-  return (int)cudaGetLastError();
+  return launch_bwd_any(mid, label, scale, gmid, n, h, C, W, f, ignore_index,
+                        s);
 }
 
 }  // extern "C"

@@ -55,18 +55,20 @@ def nvcc_path() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """A device function's name, with an integer template argument, out of
-    the mangled name ptxas prints: ``_ZN12_GLOBAL__N_18fwd_tileILi19EE..``
-    -> ``fwd_tile<19>``."""
+    """A device function's name, with its integer template arguments, out
+    of the mangled name ptxas prints: ``_ZN12_GLOBAL__N_18fwd_tileILi19EE..``
+    -> ``fwd_tile<19>``, ``..12bwd_tile_anyILi8ELi20ELi2EEEv..`` ->
+    ``bwd_tile_any<8, 20, 2>``."""
     rest, parts = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
     while rest[:1].isdigit():
         digits = re.match(r"\d+", rest).group()
         end = len(digits) + int(digits)
         parts.append(rest[len(digits):end])
         rest = rest[end:]
-    arg = re.match(r"ILi(\d+)E", rest)
-    return (parts[-1] if parts else mangled) \
-        + (f"<{arg.group(1)}>" if arg else "")
+    args = re.match(r"I((?:Li\d+E)+)E", rest)
+    return (parts[-1] if parts else mangled) + (
+        "<" + ", ".join(re.findall(r"\d+", args.group(1))) + ">"
+        if args else "")
 
 
 def library_path(name: str) -> Path:

@@ -35,9 +35,14 @@ import torch
 import torch.nn.functional as F
 
 from ...parallel.distributed import sum_over_ranks
-from ...utils.tracing import count
+from ...utils.tracing import count, counters
 from . import build
 from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
+
+# K2's launches of its any-C instance (every class count but 19), beside
+# ``launch.resize_ce_bwd``, which counts both: ``launch.resize_ce_bwd.any``
+# in the tracer's rows, 0 in those of a 19-class model
+ANY_C_LAUNCHES = counters("launch.resize_ce_bwd", ("any",))
 
 
 def interp_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -232,6 +237,8 @@ def resize_ce_grad_mid(mid: torch.Tensor, label: torch.Tensor,
                                    torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "resize_ce_bwd")
     count("launch.resize_ce_bwd")
+    if c != 19:
+        count("launch.resize_ce_bwd.any")
     return gmid
 
 

@@ -9,15 +9,18 @@ package's own source, any other argument a directory holding a
 with the package's nvcc flags (into ``_build/compare/``) and their ptxas
 lines for K1's and K2's device functions are printed. Every build is held
 against the plain versions at the flagship's two losses ([8, 19, 16, 32]
-and [8, 19, 32, 64] logits against 512x1024 labels), the ViT's two and a
-150-class case: K1's loss within 1e-5 relative and its valid count equal,
-K2 within 1e-4 of max|ref|, and each bit-equal over two launches. Then K1
-and K2 are timed at the flagship's two losses in alternating turns (A B ..
-B A, ``--rounds`` times): the mean of 50 launches back to back (queued
-behind a spin on the card) and the median of 30 launches each after a 64 MB
-write that evicts L2; ``F.cross_entropy(F.interpolate)``, the library call
-K1 replaces, at the start and end of each round; ``--no-check`` times
-builds that are wrong on purpose (a part left out to see what it costs).
+and [8, 19, 32, 64] logits against 512x1024 labels), the ViT's two at 19
+and at 150 classes, 21, 59 and 171 classes at the ViT's decode shape and a
+small 150-class case: K1's loss within 1e-5 relative and its valid count
+equal, K2 within 1e-4 of max|ref|, and each bit-equal over two launches.
+Then K1 and K2 are timed at the flagship's two losses, the ViT cell's two
+(batch 16, 150 classes: the any-C instances) and 21, 59 and 171 classes at
+its decode shape, in alternating turns (A B .. B A, ``--rounds`` times):
+the mean of 50 launches back to back (queued behind a spin on the card)
+and the median of 30 launches each after a 64 MB write that evicts L2;
+``F.cross_entropy(F.interpolate)``, the library call K1 replaces, at the
+start and end of each round; ``--no-check`` times builds that are wrong on
+purpose (a part left out to see what it costs).
 Prints every turn and writes ``chiprun_out/compare_resize_ce_builds.json``.
 Needs a CUDA card; exits non-zero on a failed build or check.
 """
@@ -41,9 +44,15 @@ from gaiaseg_tpu_torch.ops.cuda import resize_ce as rc  # noqa: E402
 from gaiaseg_tpu_torch.tools.compare_flash_builds import (  # noqa: E402
     back_to_back_ms, compile_all, flushed_ms)
 
-# [N, C, h, w] logits -> [N, H, W] labels
+# [N, C, h, w] logits -> [N, H, W] labels: the flagship's two losses, the
+# ViT cell's two (any-C instances), other class counts at its decode shape
 TIMED = {"decode": (8, 19, 16, 32, 512, 1024),
-         "aux": (8, 19, 32, 64, 512, 1024)}
+         "aux": (8, 19, 32, 64, 512, 1024),
+         "vit_decode150": (16, 150, 128, 128, 512, 512),
+         "vit_aux150": (16, 150, 32, 32, 512, 512),
+         "c21": (16, 21, 128, 128, 512, 512),
+         "c59": (16, 59, 128, 128, 512, 512),
+         "c171": (16, 171, 128, 128, 512, 512)}
 CHECKED = {**TIMED, "vit_decode": (8, 19, 128, 128, 512, 512),
            "vit_aux": (8, 19, 32, 32, 512, 512),
            "c150": (2, 150, 6, 10, 24, 40)}
@@ -162,12 +171,12 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"on {smi}; ms per launch at the flagship's losses, every turn")
+    print(f"on {smi}; ms per launch, every turn")
     for name in args.builds:
         print(f"{name}: worst K1 loss rel {worst[name]['k1_loss_rel']:.2e}, "
               f"K2 err/max|ref| {worst[name]['k2_rel']:.2e}")
         for key, vals in res[name].items():
-            print(f"   {key:<24} " + " ".join(f"{x:.4f}" for x in vals))
+            print(f"   {key:<30} " + " ".join(f"{x:.4f}" for x in vals))
     for key, vals in lib_ms.items():
         print(f"F.cross_entropy(F.interpolate) {key:<20} "
               + " ".join(f"{x:.4f}" for x in vals))

@@ -9,6 +9,8 @@
   the 63 rows a box reads past it arrive as zeros.
 - ``build.library_path``: the library name changes when a shared header
   ``csrc/*.cuh`` changes, so an edited header rebuilds.
+- ``build.kernel_name``: a device function's name and integer template
+  arguments out of the mangled name ptxas prints.
 """
 import pytest
 import torch
@@ -80,3 +82,13 @@ def test_library_path_covers_shared_headers(tmp_path, monkeypatch):
     assert build.library_path("k") not in (first, second)
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
     assert build.library_path("k").name.startswith("libk_")
+
+
+@pytest.mark.parametrize("mangled, name", [
+    ("_ZN12_GLOBAL__N_18fwd_tileILi19EEEvPKfPKiPjPfiiiii", "fwd_tile<19>"),
+    ("_ZN12_GLOBAL__N_112fwd_tile_anyEPKfPKiPjPfiiiiii", "fwd_tile_any"),
+    ("_ZN12_GLOBAL__N_112bwd_tile_anyILi8ELi20ELi2EEEvPKfPKiS2_Pfiiiiiibi",
+     "bwd_tile_any<8, 20, 2>"),
+    ("_Z9fwd_wgmmaPKv", "fwd_wgmma")])
+def test_kernel_name_from_mangled(mangled, name):
+    assert build.kernel_name(mangled) == name

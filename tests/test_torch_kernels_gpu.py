@@ -19,7 +19,14 @@ SHAPES = [
     (8, 16, 32, 19, 512, 1024),     # flagship decode loss
     (8, 32, 64, 19, 512, 1024),     # flagship aux loss
     (2, 6, 10, 150, 24, 40),        # 150 classes: K2's any-C instance
+    (8, 128, 128, 150, 512, 512),   # ViT decode loss (any-C, f = 4)
+    (8, 32, 32, 150, 512, 512),     # ViT aux loss (any-C, f = 16)
+    (2, 8, 8, 21, 32, 32),          # 21 classes (VOC)
+    (2, 3, 5, 256, 12, 40),         # 256 classes, the most K1/K2 take
+    (2, 5, 7, 59, 20, 37),          # a width off the tile's 32 columns and 4
+    (2, 6, 9, 150, 24, 72),         # both edge intervals ignored
 ]
+EDGES_IGNORED = SHAPES[-1]
 
 
 @pytest.fixture
@@ -35,6 +42,10 @@ def _inputs(shape, device, seed=0):
     logits = torch.from_numpy(rng.randn(n, c, h, w).astype(np.float32))
     lab = rng.randint(0, c, (n, H, W)).astype(np.int32)
     lab[rng.rand(n, H, W) < 0.1] = 255
+    if shape == EDGES_IGNORED:         # the rows of intervals -1 and h - 1
+        f2 = H // h // 2
+        lab[:, :f2] = 255
+        lab[:, -f2:] = 255
     return logits.to(device), torch.from_numpy(lab).to(device)
 
 
@@ -60,7 +71,7 @@ def test_kernels_match_plain(cuda, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [SHAPES[2], SHAPES[4], SHAPES[5]])
+@pytest.mark.parametrize("shape", [SHAPES[2], SHAPES[4]] + SHAPES[5:])
 def test_grad_mid_is_deterministic(cuda, shape):
     """K2 launched twice on the same inputs gives the same bits: the row
     lanes' sums are added in a fixed order, no atomics."""
@@ -70,6 +81,20 @@ def test_grad_mid_is_deterministic(cuda, shape):
     first = rc.resize_ce_grad_mid(mid, label, scale, shape[4])
     assert torch.equal(first, rc.resize_ce_grad_mid(mid, label, scale,
                                                     shape[4]))
+
+
+@pytest.mark.gpu
+def test_any_c_launches_are_counted(cuda):
+    """``launch.resize_ce_bwd.any`` counts K2's launches at 150 classes,
+    not at 19; ``launch.resize_ce_bwd`` counts both."""
+    for shape, any_c in ((SHAPES[5], 1), (SHAPES[0], 0)):
+        logits, label = _inputs(shape, cuda)
+        mid = rc.width_interp(logits, shape[5])
+        scale = torch.full((1,), 1e-3, device=cuda)
+        bwd, before = rc.LAUNCHES["resize_ce_bwd"], rc.ANY_C_LAUNCHES["any"]
+        rc.resize_ce_grad_mid(mid, label, scale, shape[4])
+        assert rc.LAUNCHES["resize_ce_bwd"] == bwd + 1
+        assert rc.ANY_C_LAUNCHES["any"] == before + any_c
 
 
 # K1 at the ViT path's losses (h = 128, f = 4; h = 32, f = 16), at 150

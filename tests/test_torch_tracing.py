@@ -305,6 +305,7 @@ def test_rows_carry_spans_counts_and_profiled():
         assert counts["feed.batches"] == 1.0
         assert counts["loss.unfused"] == 2.0     # decode and auxiliary heads
         assert counts["launch.resize_ce_fwd"] == 0.0
+        assert counts["launch.resize_ce_bwd.any"] == 0.0
         # inside the loop's clocks, and most of them
         steps = 4
         step = sum(v for k, v in spans.items() if k in (
