@@ -18,6 +18,8 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from . import parts as model_parts
+
 MAX_TRIALS = 10
 
 
@@ -116,18 +118,7 @@ def arch_of(max_arch: Dict[str, Any], meta: Dict[str, Any]) -> Dict:
 
 def max_arch(model_cfg: Dict[str, Any]) -> Dict[str, Any]:
     bb = model_cfg["backbone"]
-    if bb["type"] == "DynamicResNet":
-        return {"backbone": {
-            "stem": {"width": int(bb.get("stem_width", 64))},
-            "body": {"width": list(bb.get("body_width", (80, 160, 320, 640))),
-                     "depth": list(bb.get("body_depth", (4, 6, 29, 4)))}}}
-    emb, depth = int(bb.get("embed_dim", 768)), int(bb.get("depth", 12))
-    return {"backbone": {
-        "embedding": {"width": emb},
-        "encoder": {"depth": depth,
-                    "num_heads": [int(bb.get("num_heads", 12))] * depth,
-                    "ffn_channels": [int(bb.get("ffn_ratio", 4.0) * emb)]
-                    * depth}}}
+    return {"backbone": model_parts.get(bb["type"], "backbone").max_arch(bb)}
 
 
 def record_order(n_records: int, batch: int, seed: int) -> Iterator[list]:

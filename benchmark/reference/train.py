@@ -198,7 +198,8 @@ def full_step_stats(cfg: Dict[str, Any], weights: Dict[str, torch.Tensor],
 
 def compare(prog: Dict[str, Any], ref: Dict[str, Any],
             detail: bool = False) -> Dict[str, Any]:
-    """The four numbers a train cell is judged by:
+    """The numbers a train cell is judged by (its workload file's
+    ``limits`` pick them):
 
     - ``loss``: the largest gap of a step's loss, as a share of the
       reference's;
@@ -212,7 +213,9 @@ def compare(prog: Dict[str, Any], ref: Dict[str, Any],
     - ``bn_stats``: the running statistics' change in the first full step
       by the worst buffer, the norm of the difference (channel by channel:
       the statistics are what eval reads) over the larger of the
-      reference buffer's norm and the median moving buffer's.
+      reference buffer's norm and the median moving buffer's;
+    - ``grad_median``: the median leaf's gap of ``grad``, steady where the
+      worst leaf's swings from seed to seed.
 
     ``detail`` adds each leaf's and buffer's gap (``leaves``)."""
     loss = max(abs(p - r) / abs(r) for p, r in zip(prog["losses"],
@@ -254,11 +257,13 @@ def compare(prog: Dict[str, Any], ref: Dict[str, Any],
     print(f"stats_delta worst buffers (gap, reference norm; median "
           f"{smed:.4g}): " + ", ".join(f"{k} {diff[k]:.4g} {ref_n[k]:.4g}"
                                        for k in worst_bn), file=sys.stderr)
-    out = {"loss": loss, "grad": worst("grad_norms", names),
+    grad = gaps("grad_norms", names)
+    out = {"loss": loss, "grad": max(grad.values()),
+           "grad_median": float(np.median(list(grad.values()))),
            "update": worst("change_norms", moving),
            "bn_stats": max(diff.values())}
     if detail:
-        out["leaves"] = {"grad": gaps("grad_norms", names),
+        out["leaves"] = {"grad": grad,
                          "update": gaps("change_norms", moving),
                          "bn_stats": diff}
     return out

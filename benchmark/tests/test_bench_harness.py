@@ -108,14 +108,20 @@ def test_forbidden_names_compare_whole_top_level_names():
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    for base, _, files in os.walk(os.path.join(ROOT, "benchmark",
-                                               "reference")):
+    """Every file of ``reference/``, its parts (``reference/parts/``)
+    among them."""
+    ref_dir = os.path.join(ROOT, "benchmark", "reference")
+    seen = []
+    for base, _, files in os.walk(ref_dir):
         for f in files:
             if f.endswith(".py"):
+                seen.append(os.path.relpath(os.path.join(base, f), ref_dir))
                 src = open(os.path.join(base, f)).read()
                 assert "gaiaseg_tpu" not in src, f
                 assert not re.search(r"^\s*(import|from)\s+(jax|flax)", src,
                                      re.M), f
+    assert os.path.join("parts", "dynamic_resnet.py") in seen
+    assert os.path.join("parts", "__init__.py") in seen
 
 
 def test_a_run_without_a_card_fails_and_prints_no_result():

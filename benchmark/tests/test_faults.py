@@ -20,11 +20,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
+from benchmark.tests import cases  # noqa: E402
+
 CPU = torch.device("cpu")
-PSP = {"repo_configs": ["benchmark/tests/tiny_psp.py"], "overrides": {}}
-TRAIN = {"kind": "train", "records": 12, "record_hw": [160, 192],
-         "crop": [128, 128], "device_cache": False, "cycle": 4,
-         "check_steps": 1, "warm_steps": 6, "profile_cycles": 1}
+CASE = cases.load("psp")
+PSP = {"repo_configs": [CASE["tiny"]], "overrides": {}}
+TRAIN = CASE["train_step"]["traffic"]
 LIMITS = {"rate_metric": "train_img_per_s",
           "limits": {"loss": 1e-5, "grad": 1e-2, "update": 1e-2,
                      "bn_stats": 1e-3}}

@@ -22,28 +22,29 @@ from benchmark.lib.weights import (load_seeded_weights,  # noqa: E402
                                    seeded_weights)
 from benchmark.reference import nets, schedule  # noqa: E402
 from benchmark.reference import train as ref_train  # noqa: E402
+from benchmark.tests import cases  # noqa: E402
 
 CPU = torch.device("cpu")
-TINY = {"psp": "benchmark/tests/tiny_psp.py",
-        "vit": "benchmark/tests/tiny_vit.py"}
+FAMILIES = cases.names()
 
 
 def _setup(name, seed=5):
     from gaiaseg_tpu_torch.models import build_segmentor
-    cfg = program_config({"repo_configs": [TINY[name]], "overrides": {}})
+    cfg = program_config({"repo_configs": [cases.load(name)["tiny"]],
+                          "overrides": {}})
     model = build_segmentor(cfg["model"])
     load_seeded_weights(model, seed)
     return cfg, cfg.to_dict()["model"], model
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", FAMILIES)
 def test_parameter_layout_matches(name):
     _, model_cfg, model = _setup(name)
     assert {n: tuple(p.shape) for n, p in model.named_parameters()} == \
         dict(nets.param_specs(model_cfg))
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", FAMILIES)
 @pytest.mark.parametrize("step", [0, 1, 2, 3])
 def test_train_mode_features_match(name, step):
     """The backbone's (and neck's) train-mode features at the sandwich's
@@ -52,7 +53,7 @@ def test_train_mode_features_match(name, step):
     from gaiaseg_tpu_torch.ops.dynamic_layers import frozen_bn_stats
     cfg, model_cfg, model = _setup(name)
     meta = schedule.sampler_metas(cfg["train_sampler"], 4)[step]
-    hw = (128, 128) if name == "psp" else (64, 64)
+    hw = tuple(cases.load(name)["feature_hw"])
     x = torch.randn((4, 3) + hw, generator=torch.Generator().manual_seed(1))
     model.train()
     with frozen_bn_stats(model), torch.no_grad():
@@ -69,28 +70,18 @@ def test_train_mode_features_match(name, step):
         assert (a - b).abs().max() <= 1e-3 * max(b.abs().max(), 1.0)
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", FAMILIES)
 def test_first_train_steps_match(name):
     """The train loop's program readings against the reference's, at a
-    tiny size (float32 on both sides: the gaps are round-off). The tiny
-    PSP's batch norms over a few values a channel (its deepest maps are
-    4x4, its coarsest pool 1x1 over 4 images) amplify round-off to about
-    1e-3 in a leaf's gradient, and more over the next steps, so it is held
-    over one step and looser."""
+    tiny size, float32 on both sides, within the family's limits (each
+    with its reason in its case file)."""
     import time
     from benchmark.loops import train
-    traffic = {"kind": "train", "records": 12, "crop": None,
-               "device_cache": False, "cycle": 4, "check_steps": 2,
-               "warm_steps": 6, "profile_cycles": 1}
-    limits = {"loss": 1e-5, "grad": 1e-5, "update": 1e-4, "bn_stats": 1e-4}
-    if name == "psp":
-        traffic.update(record_hw=[160, 192], crop=[128, 128], check_steps=1)
-        limits.update(grad=1e-2, update=1e-2)
-    else:
-        traffic.update(record_hw=[64, 86], crop=[64, 64], zero_label=True)
-    run = train.run({"repo_configs": [TINY[name]], "overrides": {}},
-                    traffic, {"rate_metric": "train_img_per_s",
-                              "limits": limits},
+    case = cases.load(name)
+    run = train.run({"repo_configs": [case["tiny"]], "overrides": {}},
+                    dict(case["train_step"]["traffic"]),
+                    {"rate_metric": "train_img_per_s",
+                     "limits": cases.limits(case)},
                     seed=2 ** 31 + 11, seconds=0.5, trace=False,
                     t_start=time.perf_counter(), device=CPU)
     assert run.correct, [(c.name, c.value) for c in run.checks]

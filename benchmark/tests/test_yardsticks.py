@@ -19,32 +19,17 @@ from benchmark.loops.common import program_config  # noqa: E402
 from benchmark.lib.macs import model_macs  # noqa: E402
 from benchmark.lib.peaks import resize_ce_bound_s  # noqa: E402
 from benchmark.reference import schedule  # noqa: E402
-
-SMALL = {  # the published layouts at widths a CPU counts quickly
-    "psp": {"repo_configs": ["configs/local_examples/train_supernet/"
-                             "pspnet_ar50to101v2_gsync.py"],
-            "overrides": {"model.backbone.body_depth": [2, 2, 3, 2]},
-            "hw": (64, 128)},
-    "vit": {"repo_configs": ["configs/_dynamic_/models/upernet_elastic_vit.py",
-                             "configs/_dynamic_/datasets/ade20k.py"],
-            "overrides": {"model.backbone.depth": 4,
-                          "model.backbone.out_indices": [0, 1, 2, 3],
-                          "model.decode_head.num_classes": 150,
-                          "model.auxiliary_head.num_classes": 150},
-            "hw": (128, 128)},
-}
+from benchmark.tests import cases  # noqa: E402
 
 
 def _port(name):
     from gaiaseg_tpu_torch.models import build_segmentor
-    c = SMALL[name]
-    cfg = program_config(c)
-    if name == "vit":
-        cfg["model"]["backbone"]["img_size"] = c["hw"][0]
-    return cfg, build_segmentor(cfg["model"]).eval(), c["hw"]
+    small = cases.load(name)["small"]
+    cfg = program_config(small)
+    return cfg, build_segmentor(cfg["model"]).eval(), tuple(small["hw"])
 
 
-@pytest.mark.parametrize("name", sorted(SMALL))
+@pytest.mark.parametrize("name", cases.names())
 @pytest.mark.parametrize("which", ["MAX", "MIN", "random"])
 def test_mac_counter_matches_flop_counter(name, which):
     from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
@@ -52,10 +37,7 @@ def test_mac_counter_matches_flop_counter(name, which):
     model_cfg = cfg.to_dict()["model"]
     metas = schedule.sampler_metas(cfg["train_sampler"], 8)
     meta = {"MAX": metas[0], "MIN": metas[1], "random": metas[-1]}[which]
-    if name == "psp":   # within the reduced depths
-        meta = dict(meta, **{"arch.backbone.body.depth": [2, 1, 3, 1]})
-    else:
-        meta = dict(meta, **{"arch.backbone.encoder.depth": 3})
+    meta = dict(meta, **cases.load(name)["mac_depth_cut"])
     x = torch.randn((1, 3) + hw)
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         model.encode_decode(x, encode_arch(model_max_arch(model_cfg), meta))
