@@ -4,9 +4,12 @@ Port of ``gaiaseg_tpu/models/backbones/dynamic_convnext.py``: a 4x4/4 conv
 stem with bias and a LayerNorm, four stages of blocks with a LayerNorm and
 a 2x2/2 conv between them, and a LayerNorm ``norm{i}`` on each stage in
 ``out_indices``. A block is a depthwise 7x7 conv with bias, then (channels
-last) LayerNorm, ``pwconv1`` to 4C, tanh GELU (flax's ``nn.gelu``),
-``pwconv2`` back to C and the layer scale ``gamma``, then stochastic depth
-on the branch and the residual add. Every LayerNorm has eps 1e-6.
+last) LayerNorm, ``pwconv1`` to 4C, GELU, ``pwconv2`` back to C and the
+layer scale ``gamma``, then stochastic depth on the branch and the residual
+add. Every LayerNorm has eps 1e-6. ``gelu`` is the block's GELU as
+``F.gelu``'s ``approximate``: ``'tanh'`` (the default) is flax's
+``nn.gelu``, the JAX package's; ``'none'`` the exact (erf) form of the
+published ConvNeXt (mmcls ``ConvNeXt``'s ``nn.GELU``).
 
 The arch ``{'body': {'width': [4], 'depth': [4]}}`` picks each stage's
 active width and depth; a stage runs its first ``depth`` blocks on prefix
@@ -38,9 +41,12 @@ from ...utils.registry import BACKBONES
 
 class DynamicConvNeXtBlock(nn.Module):
     def __init__(self, dim: int, dp_rate: float = 0.0,
-                 layer_scale_init_value: float = 1e-6):
+                 layer_scale_init_value: float = 1e-6, gelu: str = "tanh"):
         super().__init__()
+        if gelu not in ("tanh", "none"):
+            raise ValueError(f"gelu={gelu!r}: 'tanh' or 'none'")
         self.dp_rate = float(dp_rate)
+        self.gelu = gelu
         self.dwconv = DynConv2d(dim, dim, 7, bias=True, groups=dim)
         self.norm = DynLayerNorm(dim)
         self.pwconv1 = DynLinear(dim, 4 * dim)
@@ -54,7 +60,7 @@ class DynamicConvNeXtBlock(nn.Module):
         c = x.shape[1]
         y = self.dwconv(x).permute(0, 2, 3, 1)          # NHWC for LN, linears
         y = self.pwconv1(self.norm(y), 4 * c)
-        y = self.pwconv2(F.gelu(y, approximate="tanh"), c)
+        y = self.pwconv2(F.gelu(y, approximate=self.gelu), c)
         if self.gamma is not None:
             y = y * self.gamma[:c].to(y.dtype)
         y = y.permute(0, 3, 1, 2)
@@ -67,7 +73,8 @@ class DynamicConvNeXt(nn.Module):
                  depths: Sequence[int] = (3, 3, 9, 3),
                  out_indices: Sequence[int] = (0, 1, 2, 3),
                  drop_path_rate: float = 0.0,
-                 layer_scale_init_value: float = 1e-6, in_chans: int = 3):
+                 layer_scale_init_value: float = 1e-6, in_chans: int = 3,
+                 gelu: str = "tanh"):
         super().__init__()
         self.dims = [int(d) for d in dims]
         self.depths = [int(d) for d in depths]
@@ -88,7 +95,7 @@ class DynamicConvNeXt(nn.Module):
         for dim, depth in zip(self.dims, self.depths):
             self.stages.append(nn.ModuleList([
                 DynamicConvNeXtBlock(dim, rates[offset + j],
-                                     layer_scale_init_value)
+                                     layer_scale_init_value, gelu)
                 for j in range(depth)]))
             offset += depth
         for i in self.out_indices:

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from ..parallel.distributed import data_parallel
+from ..utils.tracing import region
 
 
 def global_bernoulli(x: torch.Tensor, shape, keep: float,
@@ -46,9 +47,11 @@ def drop_path(x: torch.Tensor, rate: float,
     """Per-sample stochastic depth of a residual branch ``x`` (JAX
     ``models/backbones/dynamic_convnext.py`` ``drop_path``): each sample is
     kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``;
-    the identity outside training or at rate 0."""
+    the identity outside training or at rate 0. The draw and the scaling
+    run under ``region("drop_path")``."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    return x / keep * global_bernoulli(x, shape, keep, generator)
+    with region("drop_path"):
+        return x / keep * global_bernoulli(x, shape, keep, generator)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.distributed import all_reduce_sum, data_parallel
+from ..utils.tracing import region
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -47,6 +48,8 @@ class DynConv2d(nn.Module):
     weight is ``[C, 1, kh, kw]`` at MAX and a narrower input of ``c``
     channels takes ``weight[:c]`` with ``groups=c``, the extracted
     subnet's conv. Other group counts have no sliced meaning and raise.
+    A depthwise call runs under ``region("conv.depthwise")`` (a profiler
+    range while one records, and a call counter).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -83,8 +86,9 @@ class DynConv2d(nn.Module):
             if c > w.shape[0] or out_channels not in (None, c):
                 raise ValueError(f"depthwise conv of {w.shape[0]} channels "
                                  f"given {c} (out_channels={out_channels})")
-            return F.conv2d(x, w[:c], b[:c] if b is not None else None,
-                            self.stride, self.padding, self.dilation, c)
+            with region("conv.depthwise"):
+                return F.conv2d(x, w[:c], b[:c] if b is not None else None,
+                                self.stride, self.padding, self.dilation, c)
         in_ch, in_max = x.shape[1], w.shape[1]
         if in_ch > in_max:
             raise ValueError(f"input has {in_ch} channels, the weight {in_max}")

@@ -14,14 +14,18 @@ itself unchanged): the port's float64 within 1e-6 and its float32 within
 
 - A block and the backbone at MAX and at two sub archs (the MIN, and one of
   mixed widths below each stage's depth); a block past a stage's depth
-  passes ``x`` on; the tanh GELU (flax's ``nn.gelu``).
+  passes ``x`` on; the tanh GELU (flax's ``nn.gelu``), the default; with
+  ``gelu="none"`` the published block's exact GELU, against the block
+  written in plain ``torch``.
 - ``drop_path``: the identity at rate 0 and in eval mode (as JAX's), and at
   rate 0.3 each sample kept with the binomial share and scaled by 1/keep.
 - The segmentor's losses and every gradient through the unfused loss at MAX
   and at both sub archs; three AdamW + clip steps against JAX's
   ``make_train_step``, both sides in float64.
 - ``tools/train_supernet.py`` on the config (8 iterations, its eval and
-  checkpoint), resume; calibration leaves the backbone (no BN) alone.
+  checkpoint), resume; calibration leaves the backbone (no BN) alone; the
+  shipped ConvNeXt-B UPerNet config (``configs/_dynamic_/models/
+  upernet_convnext_b.py``) at a depth cut, one step through the CLI.
 - FLOPs and parameters equal JAX's counter; the port module at MAX and a
   static sub net has the counter's parameters plus the layer scales,
   which the counter leaves out (ROADMAP C17).
@@ -31,6 +35,7 @@ itself unchanged): the port's float64 within 1e-6 and its float32 within
   draw, and encode to JAX's archs.
 """
 import copy
+import json
 import os
 
 import gaiaseg_tpu.models.backbones.dynamic_convnext as j_convnext_module
@@ -60,6 +65,7 @@ from gaiaseg_tpu.models.backbones.dynamic_convnext import \
 from gaiaseg_tpu.models.backbones.dynamic_convnext import \
     drop_path as j_drop_path
 from gaiaseg_tpu_torch.archspace.complexity import get_model_complexity_info
+from gaiaseg_tpu_torch.archspace.samplers import build_model_sampler
 from gaiaseg_tpu_torch.engine import (calibrate_bn, load_checkpoint, optim,
                                       save_checkpoint)
 from gaiaseg_tpu_torch.engine.convert import (convnext_state_dict,
@@ -197,11 +203,10 @@ def supernet():
 
 
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("width", [8, 5], ids=["max", "sliced"])
-def test_block_matches_jax(width):
-    """One block (dim 8) on a seeded map, the active channels sliced for
-    the port and zero-padded for JAX."""
-    dim = 8
+def jax_block(width, dim=8):
+    """A seeded NHWC map with ``width`` active channels, the JAX block's
+    seeded parameters as a port state dict, and the JAX block's float64
+    output on the active channels."""
     rng = np.random.RandomState(1)
     x = rng.randn(2, 9, 9, dim)
     x[..., width:] = 0.0
@@ -216,9 +221,17 @@ def test_block_matches_jax(width):
     def run():
         return jblock.apply(params, jnp.asarray(x), width)
     full = jax_float64(run)
-    want = full[..., :width]
     assert not full[..., width:].any()
-    sd = convnext_state_dict(params["params"], prefix="")
+    return x, convnext_state_dict(params["params"], prefix=""), \
+        full[..., :width]
+
+
+@pytest.mark.parametrize("width", [8, 5], ids=["max", "sliced"])
+def test_block_matches_jax(width):
+    """One block (dim 8) on a seeded map, the active channels sliced for
+    the port and zero-padded for JAX."""
+    dim = 8
+    x, sd, want = jax_block(width, dim)
     for dtype, rtol in ((torch.float64, F64_RTOL), (torch.float32, RTOL)):
         block = DynamicConvNeXtBlock(dim).to(dtype)
         block.load_state_dict(sd, strict=True)
@@ -289,6 +302,122 @@ def test_block_gelu_is_flax_tanh_form():
     assert np.abs(flax_gelu - tanh).max() <= 1e-12
     gap = np.abs(tanh - exact).max()
     assert 4e-4 < gap < 5e-4
+
+
+def test_gelu_tanh_default_matches_jax_and_the_exact_form_departs():
+    """``gelu="tanh"``, the block's and the backbone's default, is the JAX
+    block's GELU; ``gelu="none"`` (the published block's exact GELU) moves
+    the block's output by far more than the float64 tolerance."""
+    assert DynamicConvNeXtBlock(8).gelu == "tanh"
+    assert all(b.gelu == "tanh" for stage in build_backbone(
+        model_cfg(False)["backbone"]).stages for b in stage)
+    x, sd, want = jax_block(8)
+    out = {}
+    for gelu in ("tanh", "none"):
+        block = DynamicConvNeXtBlock(8, gelu=gelu).double()
+        block.load_state_dict(sd, strict=True)
+        out[gelu] = block(nchw(x).double()).detach().permute(
+            0, 2, 3, 1).numpy()
+    close(out["tanh"], want, "tanh block", F64_RTOL)
+    assert np.abs(out["none"] - want).max() > 10 * F64_RTOL * \
+        np.abs(want).max()
+
+
+def plain_block(x, sd, gelu):
+    """The published ConvNeXt block in plain ``torch`` on an NCHW map of
+    ``c`` channels, over the first ``c`` channels of MAX-shape
+    parameters."""
+    c = x.shape[1]
+    y = F.conv2d(x, sd["dwconv.weight"][:c], sd["dwconv.bias"][:c], 1, 3,
+                 1, c).permute(0, 2, 3, 1)
+    y = F.layer_norm(y, (c,), sd["norm.weight"][:c], sd["norm.bias"][:c],
+                     1e-6)
+    y = F.linear(y, sd["pwconv1.weight"][:4 * c, :c],
+                 sd["pwconv1.bias"][:4 * c])
+    y = F.linear(F.gelu(y, approximate=gelu),
+                 sd["pwconv2.weight"][:c, :4 * c], sd["pwconv2.bias"][:c])
+    return x + (y * sd["gamma"][:c]).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("width", [8, 5], ids=["max", "sliced"])
+def test_exact_gelu_block_matches_a_plain_block(width):
+    """``gelu="none"``: the block (float64, seeded parameters, layer scale
+    0.3) equals the published block written in plain ``torch`` with the
+    exact GELU, and not the one with the tanh form."""
+    torch.manual_seed(4)
+    block = DynamicConvNeXtBlock(8, gelu="none").double()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(0.3 * torch.randn_like(p))
+    sd = block.state_dict()
+    x = torch.randn(2, width, 9, 9, dtype=torch.float64)
+    got = block(x).detach()
+    torch.testing.assert_close(got, plain_block(x, sd, "none"), rtol=0,
+                               atol=1e-12)
+    assert (got - plain_block(x, sd, "tanh")).abs().max() > 1e-6
+
+
+SHIPPED_B = os.path.join(REPO, "configs", "_dynamic_", "models",
+                         "upernet_convnext_b.py")
+
+
+def test_shipped_convnext_b_config_takes_a_step_through_the_cli(tmp_path):
+    """``configs/_dynamic_/models/upernet_convnext_b.py``: the published
+    ConvNeXt-B UPerNet (widths 128/256/512/1024, depths 3/3/27/3, exact
+    GELU, UPer 512, FCN 256 on stage 2, 150 classes, batch 16, ADE20K's
+    pipeline, AdamW) with its sandwich; at depths cut to 1/1/2/1 (its MAX
+    anchor's with them), batch 2 and a 64x64 crop of synthetic records, it
+    takes one step through the train CLI (log interval 1) and writes the
+    checkpoint at the published widths."""
+    cfg = Config.fromfile(SHIPPED_B)
+    bb = cfg["model"]["backbone"]
+    assert (list(bb["dims"]), list(bb["depths"]), bb["gelu"],
+            bb["drop_path_rate"]) == ([128, 256, 512, 1024], [3, 3, 27, 3],
+                                      "none", 0.4)
+    assert cfg["model"]["decode_head"]["num_classes"] == 150
+    assert cfg["data"]["samples_per_gpu"] == 16
+    assert [op["type"] for op in cfg["data"]["train"]["pipeline"]] == [
+        "LoadImageFromFile", "LoadAnnotations", "Resize", "RandomCrop",
+        "RandomFlip", "PhotoMetricDistortion", "Normalize", "Pad"]
+    sampler = build_model_sampler(cfg["train_sampler"])
+    metas = [sampler.sample() for _ in range(4)]
+    assert [m.get("name") for m in metas] == ["MAX", "MIN", None, None]
+    assert metas[1]["arch.backbone.body.depth"] == [2, 2, 14, 2]
+    cut = [1, 1, 2, 1]
+    pipeline = [dict(type="Resize", img_scale=(86, 64),
+                     ratio_range=(0.5, 2.0)),
+                dict(type="RandomCrop", crop_size=(64, 64),
+                     cat_max_ratio=0.75),
+                dict(type="RandomFlip", prob=0.5),
+                dict(type="PhotoMetricDistortion"),
+                dict(type="Normalize", mean=[123.675, 116.28, 103.53],
+                     std=[58.395, 57.12, 57.375], to_rgb=True),
+                dict(type="Pad", size=(64, 64), pad_val=0,
+                     seg_pad_val=255)]
+    opts = {"model.backbone.depths": cut,
+            "train_sampler.model_samplers": [{"type": "anchor", "anchors": [
+                dict(metas[0], **{"arch.backbone.body.depth": cut})]}],
+            "data.samples_per_gpu": 2, "data.val": None,
+            "data.train": {"type": "SyntheticDataset", "length": 4,
+                           "size": [64, 86], "num_classes": 150,
+                           "cells": 4, "pipeline": pipeline},
+            "log_config.interval": 1}
+    wd = str(tmp_path / "wd")
+    history = train_supernet.main(
+        [SHIPPED_B, "--device", "cpu", "--work-dir", wd, "--max-iters", "1",
+         "--cfg-options"] + [f"{k}={json.dumps(v)}" for k, v in opts.items()])
+    assert [r["iter"] for r in history["loss"]] == [1]
+    assert np.isfinite(history["loss"][0]["loss"])
+    raw = torch.load(os.path.join(wd, "iter_1.pth"), map_location="cpu",
+                     weights_only=False)
+    assert raw["meta"]["max_arch"] == {"backbone": {"body": {
+        "width": [128, 256, 512, 1024], "depth": cut}}}
+    sd = raw["state_dict"]
+    assert tuple(sd["backbone.stages.3.0.pwconv1.weight"].shape) == \
+        (4096, 1024)
+    assert tuple(sd["decode_head.conv_seg.weight"].shape)[:2] == (150, 512)
+    assert tuple(sd["auxiliary_head.convs.0.conv.weight"].shape)[:2] == \
+        (256, 512)
 
 
 def test_drop_path_identity_at_rate_0_and_in_eval():

@@ -335,3 +335,38 @@ def test_rows_carry_spans_counts_and_profiled():
                                         max_iters=4)
     assert ptrain.last_history() is history
     assert [r["profiled"] for r in history["loss"]] == [False]
+
+
+def test_convnext_step_counts_its_depthwise_convs_and_drop_paths(
+        monkeypatch):
+    """A tiny ConvNeXt train step at a sub arch counts one
+    ``conv.depthwise`` call a block it runs and one ``drop_path`` call a
+    block it runs at a rate above 0 (the first block's rate is 0); neither
+    region enters a range without a profiler, and in eval neither draws."""
+    from gaiaseg_tpu_torch.models import encode_arch, model_max_arch
+    cfg = Config.fromfile(os.path.join(REPO, "configs", "tests",
+                                       "tiny_convnext_uper.py"))
+    torch.manual_seed(0)
+    model = build_segmentor(cfg["model"]).train()
+    meta = {"arch.backbone.body.width": [8, 8, 24, 16],
+            "arch.backbone.body.depth": [2, 1, 3, 1]}
+    arch = encode_arch(model_max_arch(cfg["model"]), meta)
+    img = torch.randn(2, 3, 32, 32)
+    gt = torch.randint(0, 5, (2, 32, 32), dtype=torch.int32)
+    conv, drop = tracing.counters("conv"), tracing.counters("")
+    before = conv.get("depthwise", 0), drop.get("drop_path", 0)
+
+    def entered(name):
+        raise AssertionError(f"record_function({name!r}) without a profiler")
+    monkeypatch.setattr(tracing, "record_function", entered)
+    total, _ = model.forward_train(img, gt, arch,
+                                   torch.Generator().manual_seed(0))
+    total.backward()
+    active = sum(meta["arch.backbone.body.depth"])
+    assert conv["depthwise"] - before[0] == active
+    assert drop["drop_path"] - before[1] == active - 1
+    model.eval()
+    with torch.no_grad():
+        model.extract_feat(img, arch)
+    assert conv["depthwise"] - before[0] == 2 * active
+    assert drop["drop_path"] - before[1] == active - 1
