@@ -65,7 +65,10 @@
 // coalesced. Only the two intervals on a tile's row border are evaluated by
 // two blocks: (R + 1) / R of the exponentials, none twice when R = h.
 // Ignored pixels skip the exponentials. The classes are unrolled in
-// registers.
+// registers. At the flagship's losses the any-C design below, which takes
+// 2C exponentials a pixel, measured 1.4-2.0x this one's time (at best
+// 1.2-1.8x with its instances retuned for C = 19; PERF.md), so C = 19
+// keeps its own.
 //
 // K2 layout, any other C up to 256 (bwd_tile_any; the comment above it has
 // the steps). A tile of R mid rows (a divisor of h, at most 32) by 32

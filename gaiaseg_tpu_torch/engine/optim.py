@@ -43,7 +43,6 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Set
 
 import torch
 
-from ..parallel.distributed import model_parallel
 from ..parallel.tensor_parallel import grad_sq_norm
 
 
@@ -160,16 +159,10 @@ def clip_grad_norm(params: Iterable[torch.nn.Parameter],
     Returns the norm before clipping (no host sync), in float32 (float64
     for float64 gradients)."""
     params = [p for p in params if p.grad is not None]
-    grads = [p.grad for p in params]
-    if model_parallel()[1] > 1:
-        norm = grad_sq_norm(params).sqrt()
-    else:
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.to(torch.promote_types(
-                g.dtype, torch.float32))) for g in grads]))
+    norm = grad_sq_norm(params).sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_([p.grad for p in params], scale)
     return norm
 
 

@@ -202,7 +202,8 @@ def sync_replicated_grads(params: Iterable[torch.nn.Parameter]) -> int:
 def grad_sq_norm(params: Sequence[torch.nn.Parameter]) -> torch.Tensor:
     """The squared global norm of the gradients of the whole model: the
     sharded parameters' squared norms summed over the model group, the
-    replicated ones counted once. Float32 at least."""
+    replicated ones counted once, from one ``torch._foreach_norm`` a
+    group. Float32 at least."""
     sharded, whole = [], []
     for p in params:
         if p.grad is not None:
@@ -211,15 +212,12 @@ def grad_sq_norm(params: Sequence[torch.nn.Parameter]) -> torch.Tensor:
     def sq(grads):
         wide = [g.to(torch.promote_types(g.dtype, torch.float32))
                 for g in grads]
-        return torch.stack([torch.linalg.vector_norm(g).square()
-                            for g in wide]).sum()
-    ref = next(p for p in params if p.grad is not None).grad
-    dtype = torch.promote_types(ref.dtype, torch.float32)
-    total = torch.zeros((), dtype=dtype, device=ref.device)
+        return torch.stack(torch._foreach_norm(wide)).square().sum()
+    total = None
     if sharded:     # the same parameters on every model rank
-        total = total + model_all_reduce_sum(sq(sharded).to(dtype))
+        total = model_all_reduce_sum(sq(sharded))
     if whole:
-        total = total + sq(whole).to(dtype)
+        total = sq(whole) if total is None else total + sq(whole)
     return total
 
 

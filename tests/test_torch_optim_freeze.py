@@ -99,6 +99,36 @@ def _global_norm(model):
         [torch.linalg.vector_norm(p.grad) for p in model.parameters()]))
 
 
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-6)])
+@pytest.mark.parametrize("above", [True, False])
+def test_clip_norm_equals_the_per_leaf_route(dtype, rtol, above):
+    """``clip_grad_norm`` in one process (one ``torch._foreach_norm`` over
+    the gradients) against the norm of the leaves' norms, each taken with
+    its own ``vector_norm``: the same norm and the same clipped gradients,
+    with the norm above ``max_norm`` (scaled) and below it (unchanged). A
+    parameter without a gradient is left out of both."""
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(64, 3, 3, 3), (64,), (7, 5), (), (1000,)]
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen, dtype=dtype))
+              for s in shapes]
+    for i, p in enumerate(params[:-1]):
+        p.grad = torch.randn(p.shape, generator=gen, dtype=dtype) * (i + 1)
+    grads = [p.grad.clone() for p in params[:-1]]
+    want = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads]))
+    max_norm = float(want) * (0.5 if above else 2.0)
+    scale = torch.where(want < max_norm, torch.ones_like(want),
+                        max_norm / want)
+    norm = optim.clip_grad_norm(params, max_norm)
+    assert norm.dtype == dtype and params[-1].grad is None
+    torch.testing.assert_close(norm, want, rtol=rtol, atol=0)
+    for p, g in zip(params, grads):
+        torch.testing.assert_close(p.grad, g * scale, rtol=rtol, atol=0)
+        if not above:
+            assert torch.equal(p.grad, g)
+
+
 def test_freeze_labels_name_the_stem_and_layers():
     assert optim.freeze_labels({"backbone": {}}) == set()
     assert optim.freeze_labels({"backbone": {"frozen_stages": 0}}) == {
