@@ -241,6 +241,17 @@ Phases, each printing its own lines; any failure exits non-zero:
             against the CPU (values within 1e-5 relative, gradients within
             1e-4 of their max); one MIN step with a MixedLoss(CE, Dice)
             decode loss: finite, K1/K2 never (the unfused loss).
+22. crop_counts  RandomCrop's window-count kernel (``crop_counts``) at the
+            ADE20K cells' shapes (16 of 256 cached 512x683 records, 10
+            windows of 512x512, 150 classes) and the flagship's (8 of 128
+            cached 1024x2048, 512x1024, 19 classes): equal to the plain
+            version on three draws and bit-equal launched twice; then its
+            time (L2 flushed, and back to back) beside its bound (bytes),
+            the plain version's, ``torch.histc`` alone on float keys (the
+            count the augment had used), and the whole augment's with
+            either count; then the augment captured as the train feed
+            captures it and replayed 8 times under the profiler: 8 kernel
+            launches, its ms a replay.
 
 The train phases (``train``, ``data``, ``deeplab``, ``distill``,
 ``vit_train``, ``convnext``, ``conformer``, ``vit_relpos``, ``segformer``)
@@ -272,16 +283,17 @@ VIT = os.path.join(REPO, "configs", "_dynamic_", "models",
 PHASES = ("device", "build", "kernels", "segmentor", "train", "data",
           "eval", "loop", "subnets", "deeplab", "distill", "ddp", "tp",
           "flash_kernels", "vit_segmentor", "vit_train", "vit_eval",
-          "convnext", "conformer", "vit_relpos", "segformer")
+          "convnext", "conformer", "vit_relpos", "segformer", "crop_counts")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # device functions of csrc/*.cu, as ptxas and the profiler name them
 REPO_KERNELS = ("fwd_tile", "fwd_tile_any", "bwd_tile", "bwd_tile_any",
                 "fwd_wgmma", "bwd_dkv_wgmma", "bwd_dq_wgmma", "fwd_f32",
-                "bwd_dkv_f32", "bwd_dq_f32")
+                "bwd_dkv_f32", "bwd_dq_f32", "window_counts")
 # must not spill, by source (a template's instances all count)
 NO_SPILL = {"resize_ce": ("fwd_tile", "fwd_tile_any", "bwd_tile",
                           "bwd_tile_any"),
-            "flash_attention": ("fwd_wgmma", "bwd_dkv_wgmma", "bwd_dq_wgmma")}
+            "flash_attention": ("fwd_wgmma", "bwd_dkv_wgmma", "bwd_dq_wgmma"),
+            "crop_counts": ("window_counts",)}
 VIT_ITERS = 4     # one sandwich cycle: MAX, MIN, 2 random
 ADE20K = os.path.join(REPO, "configs", "_dynamic_", "datasets", "ade20k.py")
 # the data phase: Cityscapes-sized synthetic records packed into a file, the
@@ -1111,6 +1123,169 @@ def phase_data(ctx):
         del ds
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# RandomCrop's window counts (csrc/crop_counts.cu) at the main paths'
+# shapes: (records, H, W, batch, crop, classes), 10 candidate windows an
+# image; the ADE20K cells' and the flagship's
+CROP_COUNT_SHAPES = {"ade20k": (256, 512, 683, 16, (512, 512), 150),
+                     "cityscapes": (128, 1024, 2048, 8, (512, 1024), 19)}
+
+
+def _crop_count_inputs(shape, seed):
+    """A card-resident cache of uint8 labels in 64-pixel squares (a tenth
+    of them 255, as the benchmark's records), its images, and one batch's
+    records and candidate windows at drawn scales (0.5-2) and flips."""
+    import torch
+    from gaiaseg_tpu_torch.data import transforms as tf
+    n, h, w, b, crop, classes = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    cells = torch.randint(0, classes, (n, -(-h // 64), -(-w // 64)),
+                          generator=g, device="cuda")
+    cells[torch.rand(cells.shape, generator=g, device="cuda") < 0.1] = 255
+    label = cells.repeat_interleave(64, 1).repeat_interleave(64, 2)[
+        :, :h, :w].to(torch.uint8).contiguous()
+    imgs = torch.randint(0, 256, (n, h, w, 3), generator=g, device="cuda",
+                         dtype=torch.uint8)
+    gen = torch.Generator().manual_seed(seed)
+    params = tf.params_to(tf.draw_augment_params(gen, b, (0.5, 2.0), 0.5),
+                          "cuda")
+    rows = torch.randint(0, n, (b,), generator=gen).cuda()
+    cy, cx = tf.crop_candidates((h, w), params["scale"], params["trials"],
+                                crop)
+    _, _, _, valid, near = tf._windows((h, w), crop, cy, cx,
+                                       params["scale"], params["flip"])
+    return label, imgs, rows, params, near, valid
+
+
+def phase_crop_counts(ctx):
+    """RandomCrop's window-count kernel at the ADE20K cells' and the
+    flagship's shapes: bit-equal to the plain version on three draws and
+    twice on one, then its time (L2 flushed; back to back) beside its
+    bound, the plain version's and torch.histc's alone, the whole
+    augment's with either count, and its launches and time in 8 replays
+    of the feed's graph."""
+    import torch
+    from gaiaseg_tpu_torch.data import transforms as tf
+    from gaiaseg_tpu_torch.ops.cuda import crop_counts as cc
+    out = ctx["crop_counts"] = {}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for name, shape in CROP_COUNT_SHAPES.items():
+        n, h, w, b, crop, classes = shape
+        ch = crop[0]
+        for seed in range(3):
+            label, imgs, rows, params, near, valid = \
+                _crop_count_inputs(shape, seed)
+            got = cc.crop_counts(label, rows, near, valid, ch, classes)
+            want = cc.crop_counts_reference(label, rows, near, valid, ch,
+                                            classes)
+            check(torch.equal(got, want), f"crop_counts {name} seed {seed}: "
+                  f"{int((got != want).sum())} counts differ from the plain "
+                  "version's")
+        check(torch.equal(got, cc.crop_counts(label, rows, near, valid, ch,
+                                              classes)),
+              f"crop_counts {name}: launched twice, different bits")
+        bins = classes + 1
+        lab = label[rows[:, None, None, None], near[:, :, :ch, None],
+                    near[:, :, None, ch:]]
+        keep = valid[:, :, :ch, None] & valid[:, :, None, ch:] \
+            & (lab < classes)
+        key = ((torch.arange(b * 10, device="cuda", dtype=torch.float32)
+                * bins).reshape(b, 10, 1, 1)
+               + torch.where(keep, lab.to(torch.float32), classes)
+               ).reshape(-1)
+        del lab, keep
+        nbytes = b * h * w + near.numel() * 9 + got.numel() * 8
+        mean = torch.tensor((123.675, 116.28, 103.53), device="cuda")
+        std = torch.tensor((58.395, 57.12, 57.375), device="cuda")
+
+        def augment():
+            tf.gather_augment_batch(imgs, label, rows, params, mean, std,
+                                    crop_size=crop, num_classes=classes)
+
+        def plain_augment():
+            route = tf.crop_counts
+            tf.crop_counts = cc.crop_counts_reference
+            try:
+                augment()
+            finally:
+                tf.crop_counts = route
+
+        row = out[name] = {
+            "shape": {"records": n, "hw": [h, w], "batch": b, "windows": 10,
+                      "crop": list(crop), "classes": classes},
+            "ms": _time_ms(lambda: cc.crop_counts(label, rows, near, valid,
+                                                  ch, classes), flush),
+            "b2b_ms": _cuda_ms(lambda: cc.crop_counts(
+                label, rows, near, valid, ch, classes), reps=50),
+            "plain_ms": _time_ms(lambda: cc.crop_counts_reference(
+                label, rows, near, valid, ch, classes), flush),
+            "library_ms": _time_ms(lambda: torch.histc(
+                key, bins=b * 10 * bins, min=0, max=b * 10 * bins), flush),
+            "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+            "augment_ms": _cuda_ms(augment),
+            "plain_augment_ms": _cuda_ms(plain_augment)}
+        del key
+        row.update(_replayed_crop_counts(imgs, label, rows, params, mean,
+                                         std, crop, classes))
+        check(row["replay_launches"] == 8, f"crop_counts {name}: 8 replays "
+              f"of the feed's graph ran {row['replay_launches']} kernels")
+        print(f"[crop_counts] {name}: {b} records of {h}x{w}, 10 windows of "
+              f"{crop[0]}x{crop[1]}, {classes} classes: equal to the plain "
+              f"version on 3 draws, twice bit-equal | kernel {row['ms']:.4f}"
+              f" ms (back to back {row['b2b_ms']:.4f}) | bound "
+              f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB, bytes) | "
+              f"plain {row['plain_ms']:.4f} ms | torch.histc alone "
+              f"{row['library_ms']:.4f} ms | augment {row['augment_ms']:.3f}"
+              f" ms, with the plain count {row['plain_augment_ms']:.3f} ms | "
+              f"the feed's graph, 8 replays: {row['replay_launches']} kernel "
+              f"launches, {row['replay_ms']:.4f} ms a replay of "
+              f"{row['replay_busy_ms']:.3f} ms busy; on {ctx['nvidia_smi']}")
+
+
+def _replayed_crop_counts(imgs, label, rows, params, mean, std, crop,
+                          classes, replays=8):
+    """The augment captured as the train feed captures it (a CUDA graph on
+    its side stream) and replayed under the profiler: the window-count
+    kernel's launches and device ms a replay, and the replay's busy ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gaiaseg_tpu_torch.data import transforms as tf
+    from gaiaseg_tpu_torch.data.staging import DeviceFeed
+    feed = DeviceFeed("cuda")
+    static = {"idx": rows.clone(), **{k: v.clone() for k, v in
+                                      params.items()}}
+
+    def augment():
+        return tf.gather_augment_batch(imgs, label, static["idx"], static,
+                                       mean, std, crop_size=crop,
+                                       num_classes=classes)
+
+    torch.cuda.synchronize()
+    with feed.side_stream():
+        augment()
+        graph, _ = feed.capture(augment)
+        graph.replay()
+    feed.stream.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with feed.side_stream():
+            for _ in range(replays):
+                graph.replay()
+        feed.stream.synchronize()
+    ours, busy = [], 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        busy += ms
+        if "window_counts" in e.name:
+            ours.append(ms)
+    return {"replay_launches": len(ours),
+            "replay_ms": sum(ours) / replays,
+            "replay_busy_ms": busy / replays}
 
 
 def _train_shaped_batch(cfg, n):
@@ -4232,7 +4407,8 @@ def kernels_line(ctx):
     decode-loss and aux-loss launches added), launches from the main
     paths' cycles (``_path_launches``). K3-K5: times per launch at the ViT
     train shape, launches from the ViT train cycle and the tp phase's
-    cycle on head shards (both ranks)."""
+    cycle on head shards (both ranks). ``crop_counts``: times per batch at
+    the ADE20K cells' shapes (``chip_smoke.json`` has the flagship's)."""
     out = []
     timings = ctx.get("kernel_timings", {})
     for k in ("resize_ce_fwd", "resize_ce_bwd"):
@@ -4268,6 +4444,16 @@ def kernels_line(ctx):
                 "operations" if r["ops_ms"] > r["bytes_ms"] else "bytes"),
             "library_ms": r.get("library_ms"),
         })
+    r = ctx.get("crop_counts", {}).get("ade20k", {})
+    out.append({
+        "name": "crop_counts", "route": "cuda",
+        "source": "gaiaseg_tpu_torch/csrc/crop_counts.cu",
+        "replaces": "no Pallas kernel: torch.histc of data/transforms.py "
+                    "(gaiaseg_tpu/data/transforms.py _trial_histograms "
+                    "leaves the count to XLA matmuls)",
+        "launches": None, "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+        "bound_ms": r.get("bound_ms"), "bound_by": "bytes" if r else None,
+        "library_ms": r.get("library_ms")})
     return {"kernels": out}
 
 
@@ -4342,6 +4528,7 @@ def main(argv) -> int:
                    "vit_relpos": ctx.get("vit_relpos"),
                    "segformer": ctx.get("segformer"),
                    "data": ctx.get("data"),
+                   "crop_counts": ctx.get("crop_counts"),
                    "kernels": line["kernels"]}, f, indent=2, default=str)
     print(json.dumps(line))
     print(ctx["nvidia_smi"])

@@ -31,6 +31,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.cuda.crop_counts import crop_counts
+
 Params = Dict[str, torch.Tensor]
 
 MAX_TRIALS = 10                 # RandomCrop's cat_max_ratio re-tries
@@ -190,26 +192,10 @@ def crop_candidates(img_hw: Tuple[int, int], scale: torch.Tensor,
 def _histograms(label, rows, win, ch: int, num_classes: int,
                 seg_pad_val: int) -> torch.Tensor:
     """[B, K, C] int64 class histograms of the nearest-resampled label
-    windows ``win`` [B, K, ch + cw]: all K windows gathered at once and
-    counted by one histogram kernel (keys below 2^24, exact)."""
+    windows ``win`` [B, K, ch + cw] (``ops/cuda/crop_counts.py``)."""
     _, _, _, valid, near = win
-    b, k = near.shape[:2]
-    lab = label[rows[:, None, None, None], near[:, :, :ch, None],
-                near[:, :, None, ch:]]                      # [B, K, ch, cw]
-    keep = valid[:, :, :ch, None] & valid[:, :, None, ch:] \
-        & (lab < num_classes)
-    if seg_pad_val < num_classes:
-        keep &= lab != seg_pad_val
-    bins = num_classes + 1
-    n = b * k * bins
-    base = (torch.arange(b * k, dtype=torch.float32, device=lab.device)
-            * bins).reshape(b, k, 1, 1)
-    key = base + torch.where(keep, lab.to(torch.float32), num_classes)
-    # histc on integer-valued keys with unit bins is an exact count and,
-    # unlike bincount, reads no bound back to the host (the feed captures
-    # the augment as a CUDA graph)
-    counts = torch.histc(key.reshape(-1), bins=n, min=0, max=n)
-    return counts.to(torch.int64).reshape(b, k, bins)[..., :num_classes]
+    return crop_counts(label, rows, near, valid, ch, num_classes,
+                       seg_pad_val)
 
 
 def trial_histograms(label: torch.Tensor, rows: torch.Tensor,

@@ -25,7 +25,7 @@ from ...utils.tracing import counters
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNEL_SOURCES = ("resize_ce", "flash_attention")
+KERNEL_SOURCES = ("resize_ce", "flash_attention", "crop_counts")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel since the last reset, counted by its wrapper where
 # it launches: the tracer's counter group ``launch``
 LAUNCHES = counters("launch", ("resize_ce_fwd", "resize_ce_bwd", "flash_fwd",
-                               "flash_bwd_dkv", "flash_bwd_dq"))
+                               "flash_bwd_dkv", "flash_bwd_dq",
+                               "crop_counts"))
 
 
 def reset_launches() -> None:
@@ -54,20 +55,29 @@ def nvcc_path() -> str:
         "PATH): the port's CUDA kernels are built from source at first use")
 
 
+# the kernels' builtin-type template arguments, by their mangled letter (any
+# other letter is printed as it is)
+BUILTIN_TYPES = {"h": "unsigned char", "i": "int", "x": "long long",
+                 "f": "float"}
+
+
 def kernel_name(mangled: str) -> str:
-    """A device function's name, with its integer template arguments, out
-    of the mangled name ptxas prints: ``_ZN12_GLOBAL__N_18fwd_tileILi19EE..``
-    -> ``fwd_tile<19>``, ``..12bwd_tile_anyILi8ELi20ELi2EEEv..`` ->
-    ``bwd_tile_any<8, 20, 2>``."""
+    """A device function's name, with its integer and builtin-type template
+    arguments, out of the mangled name ptxas prints:
+    ``_ZN12_GLOBAL__N_18fwd_tileILi19EE..`` -> ``fwd_tile<19>``,
+    ``..12bwd_tile_anyILi8ELi20ELi2EEEv..`` -> ``bwd_tile_any<8, 20, 2>``,
+    ``..13window_countsIhEEv..`` -> ``window_counts<unsigned char>``."""
     rest, parts = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
     while rest[:1].isdigit():
         digits = re.match(r"\d+", rest).group()
         end = len(digits) + int(digits)
         parts.append(rest[len(digits):end])
         rest = rest[end:]
-    args = re.match(r"I((?:Li\d+E)+)E", rest)
+    args = re.match(r"I((?:Li\d+E|[a-z])+)E", rest)
     return (parts[-1] if parts else mangled) + (
-        "<" + ", ".join(re.findall(r"\d+", args.group(1))) + ">"
+        "<" + ", ".join(value or BUILTIN_TYPES.get(letter, letter)
+                        for value, letter in
+                        re.findall(r"Li(\d+)E|([a-z])", args.group(1))) + ">"
         if args else "")
 
 

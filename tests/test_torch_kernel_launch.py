@@ -9,8 +9,8 @@
   the 63 rows a box reads past it arrive as zeros.
 - ``build.library_path``: the library name changes when a shared header
   ``csrc/*.cuh`` changes, so an edited header rebuilds.
-- ``build.kernel_name``: a device function's name and integer template
-  arguments out of the mangled name ptxas prints.
+- ``build.kernel_name``: a device function's name and integer or builtin
+  type template arguments out of the mangled name ptxas prints.
 """
 import pytest
 import torch
@@ -89,6 +89,10 @@ def test_library_path_covers_shared_headers(tmp_path, monkeypatch):
     ("_ZN12_GLOBAL__N_112fwd_tile_anyEPKfPKiPjPfiiiiii", "fwd_tile_any"),
     ("_ZN12_GLOBAL__N_112bwd_tile_anyILi8ELi20ELi2EEEvPKfPKiS2_Pfiiiiiibi",
      "bwd_tile_any<8, 20, 2>"),
-    ("_Z9fwd_wgmmaPKv", "fwd_wgmma")])
+    ("_Z9fwd_wgmmaPKv", "fwd_wgmma"),
+    ("_ZN12_GLOBAL__N_113window_countsIhEEvPKT_PKxS4_PKhPyiiiiiiix",
+     "window_counts<unsigned char>"),
+    ("_ZN12_GLOBAL__N_113window_countsIxEEvPKT_PKxS4_PKhPyiiiiiiix",
+     "window_counts<long long>")])
 def test_kernel_name_from_mangled(mangled, name):
     assert build.kernel_name(mangled) == name

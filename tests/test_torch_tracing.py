@@ -240,7 +240,7 @@ def test_launches_and_traffic_are_tracer_counters():
     tracing.count("launch.resize_ce_bwd", 2)
     assert dict(ops_cuda.LAUNCHES) == {
         "resize_ce_fwd": 0, "resize_ce_bwd": 2, "flash_fwd": 1,
-        "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+        "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "crop_counts": 0}
     ops_cuda.reset_launches()
     assert not any(ops_cuda.LAUNCHES.values())
 
